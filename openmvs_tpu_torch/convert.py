@@ -1,0 +1,77 @@
+"""Carrying state across from the JAX package.
+
+The system has no weights: what crosses is the scene and the packed
+per-view PatchMatch state. These functions take plain numpy arrays (what
+``np.asarray`` gives for the JAX package's ``PMData``/``PMState`` fields,
+or the arrays a JAX-package ``Scene`` holds) and build the port's objects,
+so both packages can compute on identical inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from openmvs_tpu_torch.geometry.camera import Camera
+from openmvs_tpu_torch.io.mvs import ImageMeta
+from openmvs_tpu_torch.scene import PointCloud, Scene, SceneImage
+
+
+def _tensor(a, device) -> torch.Tensor:
+    # a writable C-ordered copy; keeps 0-d arrays 0-d (np.ascontiguousarray
+    # would make them 1-d)
+    a = np.array(a, dtype=np.float32 if np.asarray(a).dtype == np.float64
+                 else None, order="C", copy=True)
+    return torch.from_numpy(a).to(device)
+
+
+def pm_data_from_numpy(d: dict, device="cuda"):
+    """Port ``PMData`` from a dict of the JAX ``PMData`` fields as numpy
+    arrays, with ``views`` a nested dict of the ``PMViews`` fields."""
+    from openmvs_tpu_torch.ops.patchmatch import PMData, PMViews
+
+    views = PMViews(**{k: _tensor(v, device) for k, v in d["views"].items()})
+    fields = {k: _tensor(v, device) for k, v in d.items() if k != "views"}
+    fields["valid"] = fields["valid"].to(torch.bool)
+    return PMData(views=views, **fields)
+
+
+def pm_state_from_numpy(d: dict, device="cuda"):
+    """Port ``PMState`` from a dict of the JAX ``PMState`` fields."""
+    from openmvs_tpu_torch.ops.patchmatch import PMState
+
+    return PMState(**{k: _tensor(v, device) for k, v in d.items()})
+
+
+def scene_from_arrays(
+    grays: Sequence[np.ndarray],
+    Ks: Sequence[np.ndarray],
+    Rs: Sequence[np.ndarray],
+    Cs: Sequence[np.ndarray],
+    points: np.ndarray,
+    point_views: Sequence[np.ndarray],
+    point_weights: Optional[Sequence[np.ndarray]] = None,
+    ids: Optional[Sequence[int]] = None,
+    names: Optional[Sequence[str]] = None,
+) -> Scene:
+    """Port ``Scene`` from per-image gray pixels and cameras (K, R, C at the
+    gray image's resolution) plus the sparse cloud and its view lists."""
+    scene = Scene()
+    n = len(grays)
+    ids = list(range(n)) if ids is None else list(ids)
+    for i in range(n):
+        gray = np.asarray(grays[i], np.float32)
+        meta = ImageMeta(name=names[i] if names else f"view{ids[i]:04d}",
+                         platform_id=i, id=int(ids[i]))
+        h, w = gray.shape
+        scene.images.append(SceneImage(
+            meta=meta, camera=Camera(Ks[i], Rs[i], Cs[i]), width=w,
+            height=h, gray=gray))
+    views = [np.asarray(v, np.uint32) for v in point_views]
+    weights = (list(point_weights) if point_weights is not None
+               else [np.ones(len(v), np.float32) for v in views])
+    scene.pointcloud = PointCloud(points=np.asarray(points, np.float32),
+                                  views=views, weights=weights)
+    return scene

@@ -1,0 +1,612 @@
+"""Dense reconstruction pipeline: Scene -> dense point cloud, in torch.
+
+Counterpart of ``openmvs_tpu/densify.py`` on its serial PatchMatch path
+(Scene::DenseReconstruction / DepthMapsData::ComputeDepthMaps,
+SceneDensify.cpp:1683-1980): view selection, sparse seeds, per-view
+PatchMatch over a sub-resolution pyramid, geometric-consistency passes,
+speckle/gap filters, the cross-view filter, and fusion into one cloud.
+
+Estimation runs on ``device`` (the card by default); filters and fusion
+are host numpy, as in the JAX package. Not ported yet: the SGM estimator,
+multi-device and sharded paths, mesh-visibility seeding, loading images
+from disk, and the verbose depth-map image dumps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from openmvs_tpu_torch.config import DenseOptions
+from openmvs_tpu_torch.geometry.camera import Camera
+from openmvs_tpu_torch.io import dmap as dmapio
+from openmvs_tpu_torch.io import images as imio
+from openmvs_tpu_torch.ops import filters, fusion, patchmatch, seed
+from openmvs_tpu_torch.scene import PointCloud, Scene
+from openmvs_tpu_torch.utils import device as devmod
+from openmvs_tpu_torch.utils import rng
+from openmvs_tpu_torch.utils.fmath import fma
+from openmvs_tpu_torch.utils.log import get_logger, timed
+from openmvs_tpu_torch.view_selection import select_views_for_scene
+
+log = get_logger("densify")
+
+
+@dataclass
+class DepthMapResult:
+    image_idx: int
+    depth: np.ndarray
+    normal: np.ndarray
+    conf: np.ndarray
+    d_min: float
+    d_max: float
+    neighbor_ids: List[int]
+    camera: Camera          # camera at depth-map resolution
+
+
+def _resize_gray(gray: np.ndarray, scale: float) -> np.ndarray:
+    if scale == 1.0:
+        return gray
+    h, w = gray.shape
+    return imio.resize_area(gray, max(1, round(w * scale)), max(1, round(h * scale)))
+
+
+def _resize_nearest_mask(m: np.ndarray, W: int, H: int) -> np.ndarray:
+    """cv::INTER_NEAREST resize of a mask: source index floor(dst * src/dst)."""
+    h, w = m.shape
+    ys = np.minimum(np.floor(np.arange(H) * (h / H)).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(W) * (w / W)).astype(np.int64), w - 1)
+    return m[ys[:, None], xs[None, :]]
+
+
+def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) triangle-kernel weights of ``jax.image.resize``'s
+    "linear" method (half-pixel centres, weights renormalised at borders),
+    computed in float32 as jax computes them."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+              * inv_scale - 0.5)
+    x = torch.abs(sample[None, :]
+                  - torch.arange(n_in, dtype=torch.float32, device=device)[:, None])
+    if inv_scale > 1.0:
+        x = x / inv_scale
+    wts = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = torch.sum(wts, dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    wts = torch.where(torch.abs(total) > eps,
+                      wts / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0).T.contiguous()
+
+
+def _resize_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
+    """One axis of the linear resize: each output is its taps (the inputs
+    of nonzero weight) accumulated in input order with fused
+    multiply-adds, as XLA evaluates the weight contraction."""
+    wts = _linear_weights(x.shape[axis], n_out, x.device)    # (n_out, n_in)
+    n_taps = int((wts != 0).sum(dim=1).max())
+    # tap indices in input order; rows with fewer taps pad with weight 0,
+    # which leaves the accumulation unchanged
+    idx = torch.sort(torch.topk((wts != 0).to(torch.int64), n_taps, dim=1,
+                                sorted=False).indices, dim=1).values
+    tw = torch.gather(wts, 1, idx)
+    xm = x.movedim(axis, 0)
+    shape = (n_out,) + (1,) * (xm.dim() - 1)
+    out = tw[:, 0].reshape(shape) * xm[idx[:, 0]]
+    for k in range(1, n_taps):
+        out = fma(tw[:, k].reshape(shape), xm[idx[:, k]], out)
+    return out.movedim(0, axis)
+
+
+def _resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(x, (h, w), "linear")`` of a 2-D map, columns
+    first, as jax contracts them."""
+    H, W = x.shape
+    out = x
+    if w != W:
+        out = _resize_axis(out, w, 1)
+    if h != H:
+        out = _resize_axis(out, h, 0)
+    return out
+
+
+def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(x, (h, w, ...), "nearest")`` over the first two
+    axes: source index floor((i + 0.5) * n_in / n_out) in float32."""
+    for axis, n in ((0, h), (1, w)):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        offs = (torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n
+        x = torch.index_select(x, axis, torch.floor(offs).to(torch.int64))
+    return x
+
+
+def _assemble_pm_host(ref_gray: np.ndarray, ref_cam: Camera,
+                      nbr_grays: List[np.ndarray], nbr_cams: List[Camera],
+                      opts: DenseOptions, d_min: float, d_max: float,
+                      nbr_depths: Optional[List[np.ndarray]] = None,
+                      usable: Optional[np.ndarray] = None) -> dict:
+    """Host-side (numpy) assembly of the per-view pack_pm_data operands."""
+    H, W = ref_gray.shape
+    V = len(nbr_grays)
+    Hp = max(g.shape[0] for g in nbr_grays)
+    Wp = max(g.shape[1] for g in nbr_grays)
+
+    images = np.zeros((V, Hp, Wp), np.float32)
+    sizes = np.zeros((V, 2), np.float32)
+    Hl = np.zeros((V, 3, 3), np.float32)
+    Hm = np.zeros((V, 3), np.float32)
+    depths = np.zeros((V, Hp, Wp), np.float32)
+    Tl = np.zeros((V, 3, 3), np.float32)
+    Tm = np.zeros((V, 3), np.float32)
+    Tr = np.zeros((V, 3, 3), np.float32)
+    Tn = np.zeros((V, 3), np.float32)
+
+    Ri, Ci, Ki = ref_cam.R, ref_cam.C, ref_cam.K
+    for j, (g, cam) in enumerate(zip(nbr_grays, nbr_cams)):
+        h, w = g.shape
+        images[j, :h, :w] = g
+        sizes[j] = (h, w)
+        # homography constants (DepthMap.h:175-185): Hl = Kj Rj Ri^T,
+        # Hm = Kj Rj (Ci - Cj); Hr = Ki^-1 is folded into X0/goff.
+        Hl[j] = cam.K @ cam.R @ Ri.T
+        Hm[j] = cam.K @ cam.R @ (Ci - cam.C)
+        if nbr_depths is not None:
+            dmap = nbr_depths[j]
+            depths[j, : dmap.shape[0], : dmap.shape[1]] = dmap
+            # geometric-consistency constants (DepthMap.h:170-173)
+            Tl[j] = cam.K @ cam.R @ Ri.T
+            Tm[j] = cam.K @ cam.R @ (Ci - cam.C)
+            Tr[j] = Ki @ Ri @ cam.R.T @ np.linalg.inv(cam.K)
+            Tn[j] = Ki @ Ri @ (cam.C - Ci)
+
+    offs = patchmatch.texel_offsets(opts)
+    Kinv = ref_cam.Kinv
+    goff = np.concatenate([offs, np.zeros((len(offs), 1), np.float32)], axis=-1) @ Kinv.T
+
+    um = np.ones((H, W), bool)
+    if usable is not None:
+        um = usable
+        if um.shape != (H, W):
+            um = _resize_nearest_mask(um, W, H)
+
+    return dict(
+        ref_gray=ref_gray.astype(np.float32), images=images, sizes=sizes,
+        Hl=Hl, Hm=Hm, depths=depths, Tl=Tl, Tm=Tm, Tr=Tr, Tn=Tn,
+        KinvT=np.ascontiguousarray(Kinv.T).astype(np.float32),
+        goff=goff.astype(np.float32),
+        d_min=np.float32(d_min), d_max=np.float32(d_max), usable=um,
+    )
+
+
+def _build_pm_data(ref_gray, ref_cam, nbr_grays, nbr_cams, opts, d_min, d_max,
+                   lowres_prior, nbr_depths=None, usable=None,
+                   device="cuda") -> patchmatch.PMData:
+    """The static per-view arrays of the PatchMatch sweep, on ``device``."""
+    h = _assemble_pm_host(ref_gray, ref_cam, nbr_grays, nbr_cams, opts,
+                          d_min, d_max, nbr_depths, usable)
+    H, W = ref_gray.shape
+    lowres = lowres_prior if lowres_prior is not None else np.zeros((H, W), np.float32)
+    return patchmatch.pack_pm_data(
+        opts, h["ref_gray"], h["images"], h["sizes"], h["Hl"], h["Hm"],
+        h["depths"], h["Tl"], h["Tm"], h["Tr"], h["Tn"], h["KinvT"],
+        h["goff"], h["d_min"], h["d_max"], lowres, h["usable"], device=device,
+    )
+
+
+class DeferredResult:
+    """estimate_depth_map output with the packed (H, W, 5) result still on
+    the device: kernels run asynchronously, so the caller can prepare the
+    next view's host data while this one computes; resolve() downloads."""
+
+    def __init__(self, packed: torch.Tensor, template: DepthMapResult):
+        self._packed = packed
+        self._template = template
+
+    def resolve(self) -> DepthMapResult:
+        packed = self._packed.cpu().numpy()
+        r = self._template
+        r.depth = np.array(packed[..., 0], np.float32, copy=True, order="C")
+        r.normal = np.array(packed[..., 1:4], np.float32, copy=True, order="C")
+        r.conf = np.array(packed[..., 4], np.float32, copy=True, order="C")
+        return r
+
+
+def estimate_depth_map(
+    scene: Scene,
+    ref_idx: int,
+    opts: DenseOptions,
+    prev: Optional[DepthMapResult] = None,
+    neighbor_results: Optional[Dict[int, DepthMapResult]] = None,
+    geometric_iter: int = -1,
+    rng_seed: int = 0,
+    defer_download: bool = False,
+    device="cuda",
+):
+    """PatchMatch depth estimation for one reference view.
+
+    geometric_iter < 0: photometric pass with the sub-resolution pyramid
+    (EstimateDepthMap, SceneDensify.cpp:616-805); otherwise one
+    geometric-consistency iteration at full resolution using the neighbors'
+    current depth maps.
+    """
+    dev = devmod.resolve(device)
+    img = scene.images[ref_idx]
+    neighbors = img.meta.view_scores
+    if not neighbors:
+        return None
+    num = opts.num_views if opts.num_views > 0 else len(neighbors)
+    id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
+    # filter ids and images together so depths and cameras stay aligned
+    nbr_ids = [vs.id for vs in neighbors if vs.id in id_to_idx][:num]
+    if not nbr_ids:
+        return None
+    nbr_imgs = [scene.images[id_to_idx[i]] for i in nbr_ids]
+
+    # sparse seeds at full working resolution
+    pts_sel = []
+    trusted = []
+    for i, v in enumerate(scene.pointcloud.views):
+        if img.meta.id in v:
+            pts_sel.append(scene.pointcloud.points[i])
+            trusted.append(len(v) >= opts.min_views_trust_point)
+    pts_sel = np.asarray(pts_sel, np.float64).reshape(-1, 3)
+    trusted = np.asarray(trusted, bool)
+
+    ref_cam_full = img.working_camera()
+    H, W = img.gray.shape
+    if prev is not None and geometric_iter >= 0:
+        # geometric re-estimation seeds from the previous pass
+        seed_depth_full = seed_normal_full = None
+        d_min, d_max = prev.d_min, prev.d_max
+    else:
+        seed_depth_full, seed_normal_full, d_min, d_max = seed.seed_depth_normal(
+            ref_cam_full, W, H, pts_sel, trusted,
+            interpolate=not opts.init_sparse, add_corners=opts.add_corners,
+        )
+        if prev is not None:
+            d_min, d_max = prev.d_min, prev.d_max
+    if d_max <= d_min:
+        return None
+
+    is_geometric = geometric_iter >= 0
+    levels = 0 if is_geometric else opts.sub_resolution_levels
+    n_iters = 1 if is_geometric else opts.estimation_iters
+    n_exact = max(1, opts.exact_final_iters)
+    n_pert = max(1, opts.random_iters // 2)
+
+    state_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    lowres_prior = None
+    result_state = None
+    result_cam = None
+    data = None
+    for level in range(levels, -1, -1):
+        s = 1.0 / (2 ** level)
+        ref_gray = _resize_gray(img.gray, s)
+        ref_cam = ref_cam_full.scaled(ref_gray.shape[1] / W) if s != 1.0 else ref_cam_full
+        nbr_grays = [_resize_gray(n.gray, s) for n in nbr_imgs]
+        nbr_cams = [
+            n.working_camera().scaled(g.shape[1] / n.gray.shape[1]) if s != 1.0 else n.working_camera()
+            for n, g in zip(nbr_imgs, nbr_grays)
+        ]
+        nbr_depths = None
+        if is_geometric and neighbor_results:
+            nbr_depths = []
+            for i in nbr_ids:
+                r = neighbor_results.get(i)
+                nbr_depths.append(r.depth if r is not None else np.zeros((8, 8), np.float32))
+
+        h, w = ref_gray.shape
+        if state_dev is None:
+            if s != 1.0:
+                sd = np.zeros((h, w), np.float32)
+                sn = np.zeros((h, w, 3), np.float32)
+                ys, xs = np.nonzero(seed_depth_full > 0)
+                yy = np.clip((ys * s).astype(int), 0, h - 1)
+                xx = np.clip((xs * s).astype(int), 0, w - 1)
+                sd[yy, xx] = seed_depth_full[ys, xs]
+                sn[yy, xx] = seed_normal_full[ys, xs]
+            else:
+                sd, sn = seed_depth_full, seed_normal_full
+            if prev is not None and is_geometric:
+                sd, sn = prev.depth, prev.normal
+        else:
+            # upscale the previous level's estimate as seed + low-res prior,
+            # on the device
+            sd = _resize_linear(state_dev[0], h, w)
+            sn = _resize_nearest(state_dev[1], h, w)
+            lowres_prior = sd
+
+        data = _build_pm_data(
+            ref_gray, ref_cam, nbr_grays, nbr_cams, opts, d_min, d_max, lowres_prior,
+            nbr_depths, usable=img.usable_mask(opts.ignore_mask_label),
+            device=dev,
+        )
+        key = rng.prng_key(rng_seed * 7919 + ref_idx * 131 + level + 1000 * (geometric_iter + 1))
+        nV = len(nbr_grays)
+        # the incumbent is scored in the first sweep's sampling mode
+        first_mode = "exact" if 0 >= n_iters - n_exact else "nn"
+        state = patchmatch.init_state(data, opts, key, sd, sn, nV, is_geometric,
+                                      mode=first_mode)
+        # Sweep schedule: nearest-sample search sweeps as one adaptive
+        # early-exit block, then exact bilinear final sweeps (the mode
+        # switch rescores the incumbent so candidates compete fairly).
+        n_nn = max(0, n_iters - n_exact)
+        prev_mode = None
+        it0 = 0
+        if n_nn >= 3:
+            state, _ = patchmatch.sweep_block_adaptive(
+                state, data, opts, key, nV, is_geometric,
+                n_perturb=n_pert, mode="nn", n_prop=8,
+                first_fold=1, n_sweeps=n_nn, min_sweeps=2,
+                eps=5e-3, min_frac=0.01,
+            )
+            prev_mode = "nn"
+            it0 = n_nn
+        for it in range(it0, n_iters):
+            mode = "exact" if it >= n_iters - n_exact else "nn"
+            rescore = prev_mode is not None and mode != prev_mode
+            state = patchmatch.sweep(
+                state, data, opts, key, nV, is_geometric,
+                mode=mode, rescore_state=rescore,
+                n_perturb=n_pert, n_prop=8, fold=it + 1,
+            )
+            prev_mode = mode
+        state_dev = (state.depth, state.normal)
+        result_state, result_cam = state, ref_cam
+
+    geometric_follows = (not is_geometric) and opts.estimation_geometric_iters > 0
+    final = patchmatch.finalize(result_state, data, opts, geometric_follows)
+    template = DepthMapResult(
+        image_idx=ref_idx, depth=None, normal=None, conf=None,
+        d_min=d_min, d_max=d_max, neighbor_ids=nbr_ids, camera=result_cam,
+    )
+    deferred = DeferredResult(patchmatch.pack_state(final), template)
+    if defer_download:
+        return deferred
+    return deferred.resolve()
+
+
+def optimize_depth_map(res: DepthMapResult, opts: DenseOptions) -> None:
+    """Speckle removal + gap interpolation (EVT_OPTIMIZEDEPTHMAP stage)."""
+    if opts.optimize & 1:
+        filters.remove_small_segments(res.depth, res.normal, res.conf, opts)
+    if opts.optimize & 2:
+        filters.gap_interpolation(res.depth, res.normal, res.conf, opts)
+
+
+def _filter_views(results: Dict[int, DepthMapResult], resumed: set,
+                  opts: DenseOptions) -> Dict[int, DepthMapResult]:
+    """Cross-view filter of every estimated map against its neighbors'
+    maps projected into it (FilterDepthMap, SceneDensify.cpp:1050-1302)."""
+    filtered: Dict[int, DepthMapResult] = {}
+    for rid, r in results.items():
+        if rid in resumed:
+            filtered[rid] = r
+            continue
+        projected = []
+        for nb_id in r.neighbor_ids:
+            nb = results.get(nb_id)
+            if nb is None:
+                continue
+            projected.append(filters.project_depth_to_view(
+                nb.depth, nb.conf, nb.camera, r.camera, r.depth.shape))
+        if len(projected) < opts.min_views_filter:
+            filtered[rid] = r
+            continue
+        if opts.filter_adjust:
+            nd, nc = filters.filter_depth_adjust(
+                r.depth, r.conf, projected, opts, r.d_min, r.d_max)
+        else:
+            nd, nc = filters.filter_depth_strict(r.depth, r.conf, projected, opts)
+        filtered[rid] = dataclasses.replace(r, depth=nd, conf=nc)
+    return filtered
+
+
+def _run_views(fn, view_indices) -> dict:
+    """fn(view_idx) for each view on one device, overlapping host work with
+    device compute: view i+1 is prepared and launched before view i's
+    deferred result is downloaded (SceneDensify.cpp:54-64,1883-1903)."""
+    results = {}
+    pending = deque()
+    for i in view_indices:
+        r = fn(i)
+        if isinstance(r, DeferredResult):
+            pending.append((i, r))
+            if len(pending) > 1:
+                j, rj = pending.popleft()
+                results[j] = rj.resolve()
+        else:
+            results[i] = r
+    while pending:
+        j, rj = pending.popleft()
+        results[j] = rj.resolve()
+    return results
+
+
+def dense_reconstruction(
+    scene: Scene,
+    opts: DenseOptions = DenseOptions(),
+    max_dim: Optional[int] = None,
+    save_dmaps_to: Optional[str] = None,
+    fusion_mode: int = 0,
+    respect_neighbors: bool = False,
+    device="cuda",
+) -> PointCloud:
+    """Full dense pipeline: estimate all depth maps, filter, fuse.
+
+    fusion_mode (DensifyPointCloud --fusion-mode): 0 = estimate + fuse
+    (default); 1 = export depth maps only (requires save_dmaps_to, returns
+    an empty cloud); -2 = fuse from existing maps (estimation resumes off
+    the .dmap files, so only missing views recompute). Views whose final
+    .dmap already exists in save_dmaps_to are resumed, not re-estimated."""
+    dev = devmod.resolve(device)
+    if abs(fusion_mode) == 1 and not save_dmaps_to:
+        raise ValueError("fusion_mode +/-1 (map export only) requires save_dmaps_to")
+    if fusion_mode == -1 or opts.estimator != "patchmatch":
+        raise NotImplementedError("the SGM estimator is not ported yet")
+    if max_dim is None:
+        w0 = max(im.width for im in scene.images)
+        h0 = max(im.height for im in scene.images)
+        max_dim = imio.compute_max_resolution(
+            w0, h0, opts.resolution_level, opts.min_resolution, opts.max_resolution)
+    for img in scene.images:
+        if img.gray is None:
+            img.load(max_dim=max_dim)
+
+    with timed(log, "select views"):
+        select_views_for_scene(scene, opts, respect_existing=respect_neighbors)
+
+    # per-view resume: views whose final .dmap exists skip estimation and
+    # serve as neighbor inputs (SceneDensify.cpp:2010-2029)
+    results: Dict[int, DepthMapResult] = {}
+    resumed: set = set()
+    if save_dmaps_to:
+        id_to_idx0 = {im.meta.id: i for i, im in enumerate(scene.images)}
+        for img in scene.images:
+            p = os.path.join(save_dmaps_to, f"depth{img.meta.id:04d}.dmap")
+            if not os.path.exists(p):
+                continue
+            dd = dmapio.load(p)
+            results[img.meta.id] = DepthMapResult(
+                image_idx=id_to_idx0[img.meta.id],
+                depth=dd.depth,
+                normal=dd.normal if dd.normal is not None
+                else np.zeros(dd.depth.shape + (3,), np.float32),
+                conf=dd.conf if dd.conf is not None
+                else (dd.depth > 0).astype(np.float32),
+                d_min=dd.depth_min, d_max=dd.depth_max,
+                neighbor_ids=[int(v) for v in dd.view_ids[1:]],
+                camera=Camera(dd.K, dd.R, dd.C),
+            )
+            resumed.add(img.meta.id)
+        if resumed:
+            log.info("resume: %d views loaded from existing dmaps", len(resumed))
+
+    # pass 1: photometric estimation
+    todo = [i for i in range(scene.n_views) if scene.images[i].meta.id not in resumed]
+    with timed(log, f"photometric pass ({len(todo)} views)"):
+        raw = _run_views(lambda i: estimate_depth_map(
+            scene, i, opts, defer_download=True, device=dev), todo)
+    for i, r in raw.items():
+        if r is not None:
+            results[scene.images[i].meta.id] = r
+
+    # pass 2: geometric-consistency re-estimation
+    for gi in range(opts.estimation_geometric_iters):
+        have = [i for i in range(scene.n_views)
+                if scene.images[i].meta.id in results
+                and scene.images[i].meta.id not in resumed]
+        with timed(log, f"geometric pass {gi} ({len(have)} views)"):
+            raw = _run_views(lambda i: estimate_depth_map(
+                scene, i, opts, prev=results[scene.images[i].meta.id],
+                neighbor_results=results, geometric_iter=gi,
+                defer_download=True, device=dev), have)
+        # resumed views (and failed re-estimations) keep contributing
+        new_results: Dict[int, DepthMapResult] = dict(results)
+        for i, r in raw.items():
+            if r is not None:
+                new_results[scene.images[i].meta.id] = r
+        results = new_results
+
+    # optimize: speckle + gaps (resumed views were optimized before saving)
+    with timed(log, "optimize depth maps"):
+        for rid, r in results.items():
+            if rid not in resumed:
+                optimize_depth_map(r, opts)
+
+    # pass 3: cross-view filtering
+    if opts.optimize & 4:
+        with timed(log, "cross-view filter"):
+            results = _filter_views(results, resumed, opts)
+
+    if save_dmaps_to:
+        os.makedirs(save_dmaps_to, exist_ok=True)
+        for rid, r in results.items():
+            if rid in resumed:
+                continue
+            dd = dmapio.DepthData(
+                depth=r.depth,
+                image_width=scene.images[r.image_idx].width,
+                image_height=scene.images[r.image_idx].height,
+                depth_min=r.d_min, depth_max=r.d_max,
+                file_name=scene.images[r.image_idx].meta.name,
+                view_ids=np.array([rid] + list(r.neighbor_ids), np.uint32),
+                K=r.camera.K, R=r.camera.R, C=r.camera.C,
+                normal=r.normal, conf=r.conf,
+            )
+            dmapio.save(dd, os.path.join(save_dmaps_to, f"depth{rid:04d}.dmap"))
+
+    if abs(fusion_mode) == 1:
+        log.info("fusion-mode %d: %d maps exported to %s; skipping fusion",
+                 fusion_mode, len(results), save_dmaps_to)
+        return PointCloud()
+
+    with timed(log, "fuse depth maps"):
+        use_stream = (opts.fuse_mode != "merge" and save_dmaps_to
+                      and len(results) > 16)
+        if use_stream:
+            # large scene: free the in-RAM maps and stream them back from
+            # the .dmap files on demand (DepthMap.h:217-218)
+            meta = [(rid, r.image_idx, list(r.neighbor_ids))
+                    for rid, r in results.items()]
+            max_nb = max((len(m[2]) for m in meta), default=2)
+            for r in results.values():
+                r.depth = r.normal = r.conf = None
+            provider = fusion.ViewProvider(
+                [m[0] for m in meta], _dmap_fusion_loader(scene, save_dmaps_to, meta),
+                max_cached=max_nb + 2, neighbor_ids={m[0]: m[2] for m in meta})
+            pc = fusion.fuse_depth_maps(
+                None, opts, estimate_color=opts.estimate_colors > 0,
+                estimate_normal=opts.estimate_normals > 0, provider=provider)
+        else:
+            id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
+            vdd = []
+            for rid, r in results.items():
+                img = scene.images[id_to_idx[rid]]
+                color = img.color
+                if color is not None and color.shape[:2] != r.depth.shape:
+                    color = imio.resize_area(color, r.depth.shape[1], r.depth.shape[0])
+                vdd.append(fusion.ViewDepthData(
+                    image_idx=r.image_idx, image_id=rid, camera=r.camera,
+                    depth=r.depth, normal=r.normal, conf=r.conf, color=color,
+                    neighbor_ids=r.neighbor_ids))
+            fuse_fn = (fusion.merge_depth_maps if opts.fuse_mode == "merge"
+                       else fusion.fuse_depth_maps)
+            pc = fuse_fn(vdd, opts, estimate_color=opts.estimate_colors > 0,
+                         estimate_normal=opts.estimate_normals > 0)
+    if save_dmaps_to and opts.remove_dmaps:
+        for rid in results:
+            p = os.path.join(save_dmaps_to, f"depth{rid:04d}.dmap")
+            if os.path.exists(p):
+                os.remove(p)
+    log.info("dense point cloud: %d points", len(pc))
+    return pc
+
+
+def _dmap_fusion_loader(scene: Scene, folder: str, meta_list):
+    """ViewProvider loader reading final per-view .dmap files."""
+    meta = {rid: (image_idx, nbr_ids) for rid, image_idx, nbr_ids in meta_list}
+
+    def load(vid):
+        path = os.path.join(folder, f"depth{vid:04d}.dmap")
+        if vid not in meta or not os.path.exists(path):
+            return None
+        dd = dmapio.load(path)
+        image_idx, nbr_ids = meta[vid]
+        color = scene.images[image_idx].color
+        if color is not None and color.shape[:2] != dd.depth.shape:
+            color = imio.resize_area(color, dd.depth.shape[1], dd.depth.shape[0])
+        return fusion.ViewDepthData(
+            image_idx=image_idx, image_id=vid, camera=Camera(dd.K, dd.R, dd.C),
+            depth=dd.depth, normal=dd.normal, conf=dd.conf, color=color,
+            neighbor_ids=nbr_ids)
+
+    return load

@@ -1,0 +1,551 @@
+"""PatchMatch multi-view stereo as whole-image checkerboard sweeps, in torch.
+
+Counterpart of ``openmvs_tpu/ops/patchmatch.py`` on its serial,
+non-compacted path (the one the JAX package runs on the CPU): every
+half-iteration scores a fixed candidate set (8 neighbour propagations and
+3 random refinements) for all pixels of one checkerboard parity, against
+every neighbour view, and keeps per-pixel winners (the reference's
+DepthEstimator::ProcessPixel, DepthMap.cpp:630-912, scoring
+DepthMap.cpp:465-626).
+
+Scoring goes through the kernels of ``ops/pm_kernel.py`` (K1 photometric,
+K2 photometric + geometric), which run their plain versions on CPU
+tensors. Everything stays float32, and every 3x3 warp is written
+elementwise: a reduced-precision product there shifts warped coordinates
+by a tenth of a pixel (see the JAX package's note at patchmatch.py:436).
+The multiply-adds that XLA fuses in the JAX package are written as
+``fmath.fma`` and transcendentals go through ``fmath``, so results round as
+the reference's do and agree between the CPU and the card
+(``utils/fmath.py``).
+
+Randomness is the JAX package's, bit for bit: keys are derived on the host
+(``utils/rng.py``) and fields are position-anchored block hashes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from openmvs_tpu_torch.config import DenseOptions
+from openmvs_tpu_torch.ops import pm_kernel
+from openmvs_tpu_torch.utils import fmath, rng
+from openmvs_tpu_torch.utils.fmath import fma
+
+# progressive shrink factors for random refinement
+# (reference DepthEstimator::scaleRanges, DepthMap.cpp:359)
+SCALE_RANGES = tuple(0.5 ** i for i in range(12))
+
+
+class PMViews(NamedTuple):
+    """Per-neighbor-view constants, stacked on axis 0 (V views)."""
+
+    image: torch.Tensor     # (V, Hp, Wp) gray [0,1], zero padded
+    size: torch.Tensor      # (V, 2) float32: (h, w) valid extent
+    Hl: torch.Tensor        # (V, 3, 3)  Kj Rj Ri^T
+    Hm: torch.Tensor        # (V, 3)     Kj Rj (Ci - Cj)
+    depth: torch.Tensor     # (V, Hp, Wp) neighbor depth maps (geometric pass)
+    Tl: torch.Tensor        # (V, 3, 3)
+    Tm: torch.Tensor        # (V, 3)
+    Tr: torch.Tensor        # (V, 3, 3)
+    Tn: torch.Tensor        # (V, 3)
+
+
+class PMData(NamedTuple):
+    """Static (per reference view) inputs to the sweep."""
+
+    ref: torch.Tensor       # (H, W) gray
+    X0: torch.Tensor        # (H, W, 3) Kinv @ (u, v, 1)
+    goff: torch.Tensor      # (T, 3)    Kinv @ (dx, dy, 0) per texel offset
+    w: torch.Tensor         # (T, H, W) bilateral weights
+    wtm: torch.Tensor       # (T, H, W) w * (texel - weighted mean)
+    sum_w: torch.Tensor     # (H, W)
+    norm_sq0: torch.Tensor  # (H, W) weighted self-variance
+    views: PMViews
+    d_min: torch.Tensor     # () float32
+    d_max: torch.Tensor     # () float32
+    lowres: torch.Tensor    # (H, W) low-res prior depth (0 = none)
+    valid: torch.Tensor     # (H, W) bool: textured + full window inside
+    uv: torch.Tensor        # (H, W, 2) pixel coordinates
+
+
+class PMState(NamedTuple):
+    depth: torch.Tensor     # (H, W)
+    normal: torch.Tensor    # (H, W, 3) camera space, unit, n . X0 < 0
+    conf: torch.Tensor      # (H, W) aggregated score (0 best, 2 worst)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of size 3, elementwise."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _norm3(a: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis of size 3, squares accumulated
+    with fused multiply-adds as XLA's ``jnp.linalg.norm`` does."""
+    return torch.sqrt(fma(a[..., 2], a[..., 2],
+                          fma(a[..., 1], a[..., 1], a[..., 0] * a[..., 0])))
+
+
+# ------------------------------------------------------------- precompute
+
+
+def texel_offsets(opts: DenseOptions) -> np.ndarray:
+    """(T, 2) patch sample offsets (dx, dy)."""
+    r = np.arange(-opts.window_half, opts.window_half + 1, opts.window_step)
+    dy, dx = np.meshgrid(r, r, indexing="ij")
+    return np.stack([dx.ravel(), dy.ravel()], axis=-1).astype(np.float32)
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                           dtype=torch.float32, device=device)
+
+
+def pack_pm_data(opts: DenseOptions, ref_gray, images, sizes, Hl, Hm, depths,
+                 Tl, Tm, Tr, Tn, KinvT, goff, d_min, d_max, lowres, usable,
+                 device="cuda") -> PMData:
+    """Assemble PMData on ``device`` from host (numpy) or device operands;
+    X0, uv and valid are derived from pixel coordinates and Kinv."""
+    dev = torch.device(device)
+    ref = _f32(ref_gray, dev)
+    H, W = ref.shape
+    w_, wtm, sum_w, norm_sq0 = compute_patch_weights(ref, opts)
+    uu = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    vv = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    KT = _f32(KinvT, dev)
+    X0 = torch.stack([uu * KT[0, j] + vv * KT[1, j] + KT[2, j]
+                      for j in range(3)], dim=-1)
+    b = opts.window_half
+    inside = (uu >= b) & (uu < W - b) & (vv >= b) & (vv < H - b)
+    th_mag_sq = (opts.descriptor_min_magnitude ** 2
+                 if opts.descriptor_min_magnitude > 0 else -1.0)
+    low = _f32(lowres, dev)
+    usable = torch.as_tensor(np.asarray(usable) if not torch.is_tensor(usable)
+                             else usable, device=dev).to(torch.bool)
+    valid = inside & ((norm_sq0 >= th_mag_sq) | (low > 0)) & usable
+    views = PMViews(
+        image=_f32(images, dev), size=_f32(sizes, dev), Hl=_f32(Hl, dev),
+        Hm=_f32(Hm, dev), depth=_f32(depths, dev), Tl=_f32(Tl, dev),
+        Tm=_f32(Tm, dev), Tr=_f32(Tr, dev), Tn=_f32(Tn, dev),
+    )
+    return PMData(
+        ref=ref, X0=X0.contiguous(), goff=_f32(goff, dev).contiguous(),
+        w=w_, wtm=wtm, sum_w=sum_w, norm_sq0=norm_sq0, views=views,
+        d_min=_f32(d_min, dev), d_max=_f32(d_max, dev), lowres=low,
+        valid=valid, uv=torch.stack([uu, vv], dim=-1).contiguous(),
+    )
+
+
+def compute_patch_weights(ref: torch.Tensor, opts: DenseOptions):
+    """Bilateral patch weights and weighted texel stats for every pixel.
+
+    Matches DepthEstimator::GetWeight + FillPixelPatch (DepthMap.cpp:423-459):
+      weight  = exp(-(I_k - I_c)^2/(2*0.1^2) - |o_k|^2/(2*(hw-1)^2))
+      tm      = sum(w I) / sum(w)
+      wtm_k   = w_k (I_k - tm)
+      normSq0 = sum(wtm_k (I_k - tm))
+    """
+    offs = texel_offsets(opts)
+    sigma_color = -1.0 / (2.0 * 0.1 ** 2)
+    sigma_spatial = -1.0 / (2.0 * float(opts.window_half - 1) ** 2)
+    H, W = ref.shape
+    pad = opts.window_half
+    refp = F.pad(ref[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    texels = torch.stack([refp[int(dy) + pad: int(dy) + pad + H,
+                               int(dx) + pad: int(dx) + pad + W]
+                          for dx, dy in offs])                    # (T, H, W)
+    diff = texels - ref[None]
+    w_spatial = torch.from_numpy(
+        (offs[:, 0] ** 2 + offs[:, 1] ** 2) * np.float32(sigma_spatial)
+    ).to(ref.device)[:, None, None]
+    w = fmath.exp(fma(diff * diff, float(np.float32(sigma_color)), w_spatial))
+    # sums over the texel axis run in texel order (as XLA's reductions do,
+    # and the same on every device), products fused into the accumulation
+    sum_w = w[0]
+    wt = w[0] * texels[0]
+    for k in range(1, len(offs)):
+        sum_w = sum_w + w[k]
+        wt = fma(w[k], texels[k], wt)
+    tm = wt / sum_w
+    t_centered = texels - tm[None]
+    wtm = w * t_centered
+    norm_sq0 = wtm[0] * t_centered[0]
+    for k in range(1, len(offs)):
+        norm_sq0 = fma(wtm[k], t_centered[k], norm_sq0)
+    return w.contiguous(), wtm.contiguous(), sum_w, norm_sq0
+
+
+# ------------------------------------------------------------- scoring
+
+
+def _score_one_view_scan(data: PMData, opts: DenseOptions, depth, normal,
+                         inv_nd, img, size, Hl, Hm, exact: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(score, in-bounds) of C hypothesis maps in one view: the plain K1."""
+    return pm_kernel.score_view_plain(
+        img, size, Hl, Hm, depth, normal, inv_nd, data.X0, data.goff, data.w,
+        data.wtm, data.sum_w, data.norm_sq0, th_robust=float(opts.th_robust),
+        nearest=not exact)
+
+
+def _geometric_term(data: PMData, opts: DenseOptions, depth, dm, size, Tl,
+                    Tm, Tr, Tn) -> torch.Tensor:
+    """Forward-backward reprojection consistency (DepthMap.cpp:535-551)."""
+    return pm_kernel.geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth,
+                                     data.X0, data.uv)
+
+
+def _shift2d(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Shift with zero fill: out[y, x] = a[y+dy, x+dx] (leading 2 axes)."""
+    H, W = a.shape[:2]
+    out = torch.zeros_like(a)
+    ys, yd = (slice(dy, H), slice(0, H - dy)) if dy >= 0 else (slice(0, H + dy), slice(-dy, H))
+    xs, xd = (slice(dx, W), slice(0, W - dx)) if dx >= 0 else (slice(0, W + dx), slice(-dx, W))
+    out[yd, xd] = a[ys, xs]
+    return out
+
+
+
+def _smoothness_bonus(data: PMData, opts: DenseOptions, state: PMState,
+                      depth: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Plane-smoothness bonus factor vs the current 4-neighborhood estimates
+    (DENSE_SMOOTHNESS_PLANE branch of ScorePixelImage, DepthMap.cpp:522-534);
+    depth/normal are (C, H, W[, 3]) candidate maps."""
+    plane_d = depth * _dot3(normal, data.X0[None])
+    P3 = data.X0 * state.depth[..., None]
+    bonus = torch.ones_like(depth)
+    bd, bn = opts.smooth_bonus_depth, opts.smooth_bonus_normal
+    sd, sn = opts.smooth_sigma_depth, opts.smooth_sigma_normal
+    for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+        nb_d = _shift2d(state.depth, dy, dx)
+        nb_n = _shift2d(state.normal, dy, dx)
+        nb_P = _shift2d(P3, dy, dx)
+        valid = nb_d > 0
+        dist = _dot3(nb_P[None], normal) - plane_d
+        q = dist / depth
+        f_depth = fmath.exp(q * q * sd)
+        cosang = torch.clamp(_dot3(normal, nb_n[None]), -1.0, 1.0)
+        ang = fmath.arccos(cosang)
+        f_norm = fmath.exp(ang * ang * sn)
+        factor = fma(-bd, f_depth, 1.0) * fma(-bn, f_norm, 1.0)
+        bonus = bonus * torch.where(valid[None], factor, 1.0)
+    return bonus
+
+
+def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
+                     depth: torch.Tensor, normal: torch.Tensor, n_views: int,
+                     use_geom: bool, mode: str = "exact",
+                     bonus: torch.Tensor = None) -> torch.Tensor:
+    """Aggregated multi-view scores (C, H, W) of C (depth, normal) maps.
+
+    mode: "exact" = per-texel bilinear plane-induced warp (reference
+    semantics); "nn" = per-texel nearest sampling. Each view is scored by
+    K1 (K2 with ``use_geom``), then weighted by the smoothness bonus and
+    the geometric term, blended with the low-res prior, clipped at 2, and
+    aggregated min-mean over the best two views (DepthMap.cpp:594-609)."""
+    if mode not in ("exact", "nn"):
+        raise ValueError(f"scoring mode {mode!r} is not ported")
+    inv_nd_den = _dot3(normal, data.X0[None]) * depth
+    safe = torch.abs(inv_nd_den) > 1e-12
+    inv_nd = torch.where(safe, 1.0 / torch.where(safe, inv_nd_den, 1.0), 0.0)
+    if bonus is None:
+        bonus = _smoothness_bonus(data, opts, state, depth, normal)
+    v = data.views
+    d0 = data.lowres
+    f_blend = fmath.exp(data.norm_sq0 * (-1.0 / 0.02))
+    # XLA turns the division by the broadcast prior into a reciprocal
+    # multiply
+    delta = torch.clamp(torch.abs(d0[None] - depth)
+                        * (1.0 / torch.clamp(d0, min=1e-12))[None], max=0.5)
+    depth = depth.contiguous()
+    normal = normal.contiguous()
+    th = float(opts.th_robust)
+    nearest = mode == "nn"
+    s0 = s1 = torch.full(depth.shape, math.inf, dtype=torch.float32,
+                         device=depth.device)
+    for j in range(n_views):
+        if use_geom:
+            s, gj = pm_kernel.score_view_geom(
+                v.image[j], v.size[j], v.Hl[j], v.Hm[j], v.Tr[j], v.Tn[j],
+                v.depth[j], depth, normal, inv_nd, data.X0, data.uv,
+                data.goff, data.w, data.wtm, data.sum_w, data.norm_sq0,
+                th_robust=th, nearest=nearest)
+        else:
+            s = pm_kernel.score_view(
+                v.image[j], v.size[j], v.Hl[j], v.Hm[j], depth, normal,
+                inv_nd, data.X0, data.goff, data.w, data.wtm, data.sum_w,
+                data.norm_sq0, th_robust=th, nearest=nearest)
+        if use_geom:
+            s = fma(s, bonus, opts.estimation_geometric_weight * gj)
+        else:
+            s = s * bonus
+        # low-res prior blend (DepthMap.cpp:552-561)
+        s_blend = fma((1.0 - f_blend)[None], s, f_blend[None] * delta)
+        s = torch.where(d0[None] > 0, s_blend, s)
+        s = torch.clamp(s, max=2.0)
+        # a padded neighbor slot (size (0, 0)) pins to the 2.0 clip
+        s = torch.where(v.size[j][0] > 0, s, 2.0)
+        s0, s1 = torch.minimum(s0, s), torch.minimum(s1, torch.maximum(s0, s))
+    if n_views == 1:
+        return s0
+    # min-mean: average the best two unless the 2nd is already robust-clipped
+    return torch.where(s1 < opts.th_robust, 0.5 * (s0 + s1), s0)
+
+
+def score_hypothesis(data, opts, state, depth, normal, n_views, use_geom,
+                     mode="exact") -> torch.Tensor:
+    """Single-hypothesis convenience wrapper: (H, W) in, (H, W) out."""
+    return score_hypotheses(data, opts, state, depth[None], normal[None],
+                            n_views, use_geom, mode)[0]
+
+
+# ------------------------------------------------------------- candidates
+
+
+def _normal_to_dir(n: torch.Tensor):
+    theta = fmath.atan2(n[..., 1], n[..., 0])
+    phi = fmath.arccos(torch.clamp(n[..., 2], -1.0, 1.0))
+    return theta, phi
+
+
+def _dir_to_normal(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    sp = fmath.sin(phi)
+    return torch.stack([fmath.cos(theta) * sp, fmath.sin(theta) * sp,
+                        fmath.cos(phi)], dim=-1)
+
+
+_block_uniform = rng.block_uniform
+
+
+def _random_normal(key, uv, view_dir):
+    """Random camera-facing normal (DepthMap.h:439-444)."""
+    k1, k2 = rng.split(key)
+    theta = _block_uniform(k1, uv, minval=0.0, maxval=math.pi)
+    phi = _block_uniform(k2, uv, minval=math.pi / 2, maxval=math.pi)
+    n = _dir_to_normal(theta, phi)
+    flip = _dot3(n, view_dir) > 0
+    return torch.where(flip[..., None], -n, n)
+
+
+def _random_depth(key, uv, d_min, d_max):
+    """sqrt-space uniform random depth (DepthMap.h:435-438)."""
+    u = _block_uniform(key, uv)
+    r = fma(u, torch.sqrt(d_max) - torch.sqrt(d_min), torch.sqrt(d_min))
+    return r * r
+
+
+def _propagate_candidate(data: PMData, state: PMState, opts: DenseOptions,
+                         dy: int, dx: int):
+    """Neighbor estimate re-interpolated to this pixel via its plane
+    (ray-plane form of InterpolatePixel, DepthMap.cpp:916-960)."""
+    nb_d = _shift2d(state.depth, dy, dx)
+    nb_n = _shift2d(state.normal, dy, dx)
+    nb_conf = _shift2d(state.conf, dy, dx)
+    nb_X0 = _shift2d(data.X0, dy, dx)
+    plane_d = nb_d * _dot3(nb_n, nb_X0)
+    den = _dot3(nb_n, data.X0)
+    safe = torch.abs(den) > 1e-12
+    d_new = torch.where(safe, plane_d / torch.where(safe, den, 1.0), nb_d)
+    d_new = torch.where((d_new >= data.d_min) & (d_new <= data.d_max), d_new, nb_d)
+    # only propagate from valid, confident neighbors facing the camera
+    facing = den < 0
+    ok = (nb_d > 0) & (nb_conf < opts.ncc_threshold_keep) & facing
+    return d_new, nb_n, ok
+
+
+def _perturb_candidate(data: PMData, state: PMState, opts: DenseOptions, key,
+                       extra_scale: float):
+    """Random refinement around the current estimate (DepthMap.cpp:800-852);
+    the search range shrinks with the current confidence."""
+    conf = state.conf
+    idx_scale = torch.where(
+        conf <= opts.th_conf_small, opts.random_max_scale,
+        torch.where(conf <= opts.th_conf_big, min(1, opts.random_max_scale), 0)
+    ).to(torch.float32)
+    # powers of two, exact on every device
+    scale = torch.pow(0.5, idx_scale.double()).float() * extra_scale
+    k1, k2, k3, k4, k5 = rng.split(key, 5)
+    depth_range = state.depth * opts.random_depth_ratio
+    d_new = fma((_block_uniform(k1, data.uv) * 2 - 1) * depth_range, scale,
+                state.depth)
+    theta, phi = _normal_to_dir(state.normal)
+    a1 = math.radians(opts.random_angle1_range)
+    a2 = math.radians(opts.random_angle2_range)
+    theta = fma((_block_uniform(k2, data.uv) * 2 - 1) * a1, scale, theta)
+    phi = fma((_block_uniform(k3, data.uv) * 2 - 1) * a2, scale, phi)
+    n_new = _dir_to_normal(theta, phi)
+
+    # fully random restart where the current estimate is hopeless
+    rand_d = _random_depth(k4, data.uv, data.d_min, data.d_max)
+    rand_n = _random_normal(k5, data.uv, data.X0)
+    hopeless = conf >= opts.th_conf_rand
+    d_new = torch.where(hopeless, rand_d, d_new)
+    n_new = torch.where(hopeless[..., None], rand_n, n_new)
+    ok = ((d_new >= data.d_min) & (d_new <= data.d_max)
+          & (_dot3(n_new, data.X0) < 0))
+    return d_new, n_new, ok
+
+
+# propagation neighborhood: 4-adjacent plus 4 longer-range samples so
+# information travels faster than one pixel per half-iteration
+# (PatchMatchCUDA.cu:389-548 uses near+far samples similarly)
+PROP_OFFSETS = ((0, 1), (0, -1), (1, 0), (-1, 0), (0, 5), (0, -5), (5, 0), (-5, 0))
+
+
+def _prop_cand_list(data, state, opts, n_prop):
+    return [_propagate_candidate(data, state, opts, dy, dx)
+            for dy, dx in PROP_OFFSETS[:n_prop]]
+
+
+def _perturb_cand_list(data, state, opts, key, parity, n_perturb):
+    """Perturb candidates with the fold_in(parity*131 + r) key schedule."""
+    return [_perturb_candidate(data, state, opts,
+                               rng.fold_in(key, parity * 131 + r),
+                               SCALE_RANGES[r])
+            for r in range(n_perturb)]
+
+
+def _stack_cands(cand):
+    cd = torch.stack([c[0] for c in cand])      # (C, H, W)
+    cn = torch.stack([c[1] for c in cand])      # (C, H, W, 3)
+    cok = torch.stack([c[2] for c in cand])     # (C, H, W)
+    return cd, cn, cok
+
+
+def _sweep_parity(state, data, opts, key, n_views, use_geom, n_perturb, mode,
+                  parity, n_prop):
+    # global parity from data.uv (a row-tiled shard keeps the full lattice)
+    parity_map = (data.uv[..., 0] + data.uv[..., 1]).to(torch.int32) % 2
+    active = (parity_map == parity) & data.valid
+    cd, cn, cok = _stack_cands(
+        _prop_cand_list(data, state, opts, n_prop)
+        + _perturb_cand_list(data, state, opts, key, parity, n_perturb))
+    return _score_select(state, data, opts, cd, cn, cok, active, n_views,
+                         use_geom, mode)
+
+
+def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
+                  mode):
+    """Score a candidate stack and take per-parity winners vs the incumbent
+    (every pixel is scored; the active parity decides who may update)."""
+    s = score_hypotheses(data, opts, state, cd, cn, n_views, use_geom, mode)
+    s = torch.where(cok, s, math.inf)
+    best = torch.argmin(s, dim=0)[None]            # first index on ties
+    s_best = torch.gather(s, 0, best)[0]
+    d_best = torch.gather(cd, 0, best)[0]
+    n_best = torch.gather(cn, 0, best[..., None].expand(1, *cn.shape[1:]))[0]
+    take = active & (s_best < state.conf)
+    return PMState(
+        depth=torch.where(take, d_best, state.depth),
+        normal=torch.where(take[..., None], n_best, state.normal),
+        conf=torch.where(take, s_best, state.conf),
+    )
+
+
+def _rescored(state: PMState, data: PMData, opts, n_views, use_geom, mode):
+    """The incumbent state with its confidence rescored in ``mode``."""
+    cur = score_hypothesis(data, opts, state, state.depth, state.normal,
+                           n_views, use_geom, mode)
+    return PMState(depth=state.depth, normal=state.normal,
+                   conf=torch.where(data.valid, cur, 2.0))
+
+
+def sweep(state: PMState, data: PMData, opts: DenseOptions, key, n_views: int,
+          use_geom: bool = False, n_perturb: int = 3, mode: str = "nn",
+          rescore_state: bool = False, n_prop: int = len(PROP_OFFSETS),
+          fold: int = 0) -> PMState:
+    """One full PatchMatch iteration = two checkerboard half-steps.
+
+    fold != 0 derives this iteration's key as fold_in(key, fold);
+    rescore_state rescores the incumbent in ``mode`` first (scores from
+    another sampling mode are not comparable)."""
+    if fold:
+        key = rng.fold_in(key, fold)
+    if rescore_state:
+        state = _rescored(state, data, opts, n_views, use_geom, mode)
+    for parity in (0, 1):
+        state = _sweep_parity(state, data, opts, key, n_views, use_geom,
+                              n_perturb, mode, parity, n_prop)
+    return state
+
+
+def sweep_block_adaptive(state: PMState, data: PMData, opts: DenseOptions, key,
+                         n_views: int, use_geom: bool = False,
+                         n_perturb: int = 3, mode: str = "nn",
+                         n_prop: int = len(PROP_OFFSETS), first_fold: int = 1,
+                         n_sweeps: int = 3, min_sweeps: int = 2,
+                         eps: float = 5e-3, min_frac: float = 0.01):
+    """Up to n_sweeps identical search sweeps with convergence-based early
+    exit: after sweep k >= min_sweeps the block stops when the share of
+    valid pixels whose score improved by more than ``eps`` in sweep k falls
+    below ``min_frac`` (one host read per sweep). Sweep k uses
+    fold_in(key, first_fold + k), as the eager loop does. Returns
+    (state, n_done)."""
+    n_valid = torch.clamp(torch.sum(data.valid.to(torch.float32)), min=1.0)
+    it = 0
+    go_on = True
+    while it < n_sweeps and (it < min_sweeps or go_on):
+        k = rng.fold_in(key, first_fold + it)
+        old_conf = state.conf
+        for parity in (0, 1):
+            state = _sweep_parity(state, data, opts, k, n_views, use_geom,
+                                  n_perturb, mode, parity, n_prop)
+        improved = ((old_conf - state.conf) > eps) & data.valid
+        frac = torch.sum(improved.to(torch.float32)) / n_valid
+        it += 1
+        if it < n_sweeps:
+            # compared in float32, as the JAX loop condition does
+            go_on = bool(frac >= min_frac)
+    return state, it
+
+
+def init_state(data: PMData, opts: DenseOptions, key, seed_depth, seed_normal,
+               n_views: int, use_geom: bool = False, mode: str = "exact"
+               ) -> PMState:
+    """Initialize state from seeds; random where seeds are missing
+    (ScoreDepthMapTmp, SceneDensify.cpp:490-517). The incumbent is scored
+    in the first sweep's sampling mode."""
+    dev = data.ref.device
+    seed_depth = torch.as_tensor(seed_depth, dtype=torch.float32, device=dev)
+    seed_normal = torch.as_tensor(seed_normal, dtype=torch.float32, device=dev)
+    k1, k2 = rng.split(key, 2)
+    rand_d = _random_depth(k1, data.uv, data.d_min, data.d_max)
+    rand_n = _random_normal(k2, data.uv, data.X0)
+    has_seed = (seed_depth >= data.d_min) & (seed_depth <= data.d_max)
+    depth = torch.where(has_seed, seed_depth, rand_d)
+    nrm = _norm3(seed_normal)
+    facing = _dot3(seed_normal, data.X0) < 0
+    seed_n_ok = has_seed & (nrm > 0.5) & facing
+    normal = torch.where(seed_n_ok[..., None], seed_normal, rand_n)
+    normal = normal / torch.clamp(_norm3(normal)[..., None], min=1e-12)
+    state0 = PMState(depth=depth, normal=normal,
+                     conf=torch.full(depth.shape, 2.0, device=dev))
+    conf = score_hypothesis(data, opts, state0, depth, normal, n_views,
+                            use_geom, mode)
+    conf = torch.where(data.valid, conf, 2.0)
+    depth = torch.where(data.valid, depth, 0.0)
+    return PMState(depth=depth, normal=normal, conf=conf)
+
+
+def pack_state(state: PMState) -> torch.Tensor:
+    """(H, W, 5) = [depth, normal xyz, conf], downloaded in one transfer."""
+    return torch.cat([state.depth[..., None], state.normal,
+                      state.conf[..., None]], dim=-1)
+
+
+def finalize(state: PMState, data: PMData, opts: DenseOptions,
+             geometric_follows: bool) -> PMState:
+    """Threshold scores and convert to [0,1] confidence (EndDepthMapTmp,
+    SceneDensify.cpp:530-575)."""
+    keep = opts.ncc_threshold_keep * (1.333 if geometric_follows else 1.0)
+    bad = (state.depth <= 0) | (state.conf >= keep) | ~data.valid
+    conf = torch.where(state.conf >= 1.0, 0.0, 1.0 - state.conf)
+    conf = torch.where(bad, 0.0, conf)
+    depth = torch.where(bad, 0.0, state.depth)
+    normal = torch.where(bad[..., None], 0.0, state.normal)
+    return PMState(depth=depth, normal=normal, conf=conf)

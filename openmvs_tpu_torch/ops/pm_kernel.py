@@ -1,0 +1,263 @@
+"""The PatchMatch scorer kernels K1 and K2: wrappers, plain versions and
+launch counts.
+
+K1, ``score_view``, replaces ``_score_view_pallas``
+(``openmvs_tpu/ops/pm_kernel.py:819``): the bilaterally weighted ZNCC of C
+candidate planes against one neighbour view. K2, ``score_view_geom``,
+replaces ``_score_view_geom_pallas`` (``pm_kernel.py:979``): K1's score and
+the forward-backward geometric-consistency penalty of each candidate, from
+one launch. Both are CUDA kernels in ``csrc/pm_score.cu``, built on first
+use (``ops/_build.py``).
+
+The plain versions here are the port of the JAX package's XLA CPU path
+(``_score_one_view_scan`` and ``_geometric_term``, patchmatch.py:285-480).
+The kernels compute what they compute, not what the Pallas kernel computes
+where the two differ: nearest sampling rounds both axes half-to-even,
+``sum_w`` is divided unclamped, and the geometric term has no window.
+
+A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
+launches its kernel or raises; each launch adds one to its entry of
+``LAUNCHES`` (one per kernel and sampling mode).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from openmvs_tpu_torch.utils.fmath import fma, rsqrt
+
+LAUNCHES = {"score_view_exact": 0, "score_view_nn": 0,
+            "score_view_geom_exact": 0, "score_view_geom_nn": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------- plain versions
+
+
+def _corners(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """The four pixels around float coords (clamped gather) and the
+    fractional offsets."""
+    Hp, Wp = img.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    # clamp in float first: a non-finite or huge coordinate must not reach
+    # the integer conversion (its sample is masked by the callers)
+    xi = x0.clamp(-1, Wp).to(torch.int64).clamp(0, Wp - 2)
+    yi = y0.clamp(-1, Hp).to(torch.int64).clamp(0, Hp - 2)
+    flat = img.reshape(-1)
+    idx = yi * Wp + xi
+    return (flat[idx], flat[idx + 1], flat[idx + Wp], flat[idx + Wp + 1],
+            x - x0, y - y0)
+
+
+def _bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample, (v00 (1-fx) + v01 fx) (1-fy) + (v10 (1-fx) + v11 fx) fy,
+    with the multiply-adds the JAX package's geometric term contracts: the
+    right-hand term of each sum is fused."""
+    v00, v01, v10, v11, fx, fy = _corners(img, x, y)
+    top = fma(v01, fx, v00 * (1 - fx))
+    bot = fma(v11, fx, v10 * (1 - fx))
+    return fma(bot, fy, top * (1 - fy))
+
+
+def _bilinear_texel(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The same blend as ``_bilinear`` with the contraction of the JAX
+    package's texel loop, which fuses the left-hand term of the outer sum."""
+    v00, v01, v10, v11, fx, fy = _corners(img, x, y)
+    top = fma(v01, fx, v00 * (1 - fx))
+    bot = fma(v11, fx, v10 * (1 - fx))
+    return fma(top, 1 - fy, bot * fy)
+
+
+def _nearest(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour sample; torch.round rounds half to even."""
+    Hp, Wp = img.shape
+    xi = torch.round(x).clamp(-1, Wp).to(torch.int64).clamp(0, Wp - 1)
+    yi = torch.round(y).clamp(-1, Hp).to(torch.int64).clamp(0, Hp - 1)
+    return img.reshape(-1)[yi * Wp + xi]
+
+
+def _mat3(M: torch.Tensor, a, b, c):
+    """Rows of M @ (a, b, c) as the JAX package's 3x3 einsums give them:
+    elementwise float32 with a fused multiply-add chain (never a matmul,
+    which may run at reduced precision on an accelerator)."""
+    return [fma(M[r, 2], c, fma(M[r, 1], b, M[r, 0] * a)) for r in range(3)]
+
+
+def score_view_plain(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w,
+                     wtm, sum_w, norm_sq0, *, th_robust: float,
+                     nearest: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(score, in-bounds mask), each (C, H, W): weighted ZNCC of C
+    hypothesis maps in one view, texel by texel (``_score_one_view_scan``,
+    with its multiply-adds fused where XLA fuses them)."""
+    h_j, w_j = size[0], size[1]
+    SX0 = _mat3(Hl, X0[..., 0], X0[..., 1], X0[..., 2])      # 3 x (H, W)
+    Sg = _mat3(Hl, goff[:, 0], goff[:, 1], goff[:, 2])       # 3 x (T,)
+    inv_d = 1.0 / depth
+    sample = _nearest if nearest else _bilinear_texel
+    num = torch.zeros_like(depth)
+    ssum = torch.zeros_like(depth)
+    ssq = torch.zeros_like(depth)
+    inb = torch.ones(depth.shape, dtype=torch.bool, device=depth.device)
+    for k in range(goff.shape[0]):
+        g = goff[k]
+        n_goff = fma(normal[..., 2], g[2], fma(normal[..., 1], g[1], normal[..., 0] * g[0]))
+        scale = fma(n_goff, inv_nd, inv_d)
+        sx = fma(Hm[0], scale, SX0[0][None] + Sg[0][k])
+        sy = fma(Hm[1], scale, SX0[1][None] + Sg[1][k])
+        sz = fma(Hm[2], scale, SX0[2][None] + Sg[2][k])
+        zok = sz > 1e-8
+        izs = torch.where(zok, 1.0 / torch.where(zok, sz, 1.0), 0.0)
+        px = sx * izs
+        py = sy * izs
+        inb = inb & zok & (px >= 1) & (px <= w_j - 2) & (py >= 1) & (py <= h_j - 2)
+        val = sample(img, px, py)
+        num = fma(val, wtm[k][None], num)
+        ssum = fma(val, w[k][None], ssum)
+        ssq = fma(val * val, w[k][None], ssq)
+    # XLA turns the division by the broadcast sum_w into a reciprocal
+    # multiply, which then contracts with the subtraction
+    norm_sq1 = fma(-(ssum * ssum), (1.0 / sum_w)[None], ssq)
+    nrm_sq = norm_sq0[None] * norm_sq1
+    ncc = torch.clamp(num * rsqrt(torch.clamp(nrm_sq, min=1e-30)), -1.0, 1.0)
+    score = 1.0 - ncc
+    score = torch.where((nrm_sq <= 1e-16) | ~inb, th_robust, score)
+    return score, inb
+
+
+def geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
+    """(C, H, W) forward-backward reprojection penalty in [0, 4]
+    (``_geometric_term``, DepthMap.cpp:535-551): blend-then-check bilinear
+    sample of the neighbour depth, 4 where the check fails."""
+    h_j, w_j = size[0], size[1]
+    Xa = X0[..., 0][None] * depth
+    Xb = X0[..., 1][None] * depth
+    Xc = X0[..., 2][None] * depth
+    X1 = _mat3(Tl, Xa, Xb, Xc)
+    X1 = [X1[r] + Tm[r] for r in range(3)]
+    z1 = X1[2]
+    zok = z1 > 1e-8
+    iz = torch.where(zok, 1.0 / torch.where(zok, z1, 1.0), 0.0)
+    x1 = X1[0] * iz
+    y1 = X1[1] * iz
+    inside = zok & (depth > 0) & (x1 >= 1) & (x1 <= w_j - 2) & (y1 >= 1) & (y1 <= h_j - 2)
+    d1 = _bilinear(dm, x1, y1)
+    similar = inside & (d1 > 0) & (torch.abs(z1 - d1) < 0.03 * z1)
+    XB = _mat3(Tr, x1 * d1, y1 * d1, d1)
+    XB = [XB[r] + Tn[r] for r in range(3)]
+    zb = XB[2]
+    zbok = zb > 1e-8
+    izb = torch.where(zbok, 1.0 / torch.where(zbok, zb, 1.0), 0.0)
+    du = fma(-XB[0], izb, uv[..., 0])
+    dv = fma(-XB[1], izb, uv[..., 1])
+    dist = torch.sqrt(fma(du, du, dv * dv))
+    cons = torch.clamp(torch.sqrt(dist * (dist + 2.0)), max=4.0)
+    return torch.where(similar & zbok, cons, 4.0)
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0, uv,
+            goff, w, wtm, sum_w, norm_sq0, th_robust, nearest, geom):
+    from openmvs_tpu_torch.ops import _build
+
+    dev = depth.device
+    if dev.type != "cuda":
+        raise ValueError(f"scorer kernel: tensors on {dev}, expected cuda or cpu")
+    C, H, W = depth.shape
+    T = goff.shape[0]
+    if T > _build.MAX_TEXELS:
+        raise ValueError(f"scorer kernel: {T} texels, at most {_build.MAX_TEXELS}")
+    ops = dict(img=(img, img.shape), size=(size, (2,)), Hl=(Hl, (3, 3)),
+               Hm=(Hm, (3,)), depth=(depth, (C, H, W)),
+               normal=(normal, (C, H, W, 3)), inv_nd=(inv_nd, (C, H, W)),
+               X0=(X0, (H, W, 3)), goff=(goff, (T, 3)), w=(w, (T, H, W)),
+               wtm=(wtm, (T, H, W)), sum_w=(sum_w, (H, W)),
+               norm_sq0=(norm_sq0, (H, W)))
+    if geom:
+        ops.update(Tr=(Tr, (3, 3)), Tn=(Tn, (3,)), dm=(dm, dm.shape),
+                   uv=(uv, (H, W, 2)))
+    for name, (t, shape) in ops.items():
+        _check(name, t, shape, dev)
+    if img.dim() != 2 or (geom and dm.dim() != 2):
+        raise ValueError("scorer kernel: img and dm must be 2-D")
+    score = torch.empty_like(depth)
+    cons = torch.empty_like(depth) if geom else None
+    lib = _build.library()
+    null = ctypes.c_void_p(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.pm_score_view(
+        _ptr(img), img.shape[0], img.shape[1],
+        _ptr(size), _ptr(Hl), _ptr(Hm),
+        _ptr(Tr) if geom else null, _ptr(Tn) if geom else null,
+        _ptr(dm) if geom else null,
+        dm.shape[0] if geom else 0, dm.shape[1] if geom else 0,
+        _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(X0),
+        _ptr(uv) if geom else null,
+        _ptr(goff), T, _ptr(w), _ptr(wtm), _ptr(sum_w), _ptr(norm_sq0),
+        _ptr(score), _ptr(cons) if geom else null,
+        C, H, W, ctypes.c_float(th_robust), int(nearest), int(geom),
+        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"pm_score_view launch failed: {_build.error_string(rc)}")
+    return score, cons
+
+
+def score_view(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
+               sum_w, norm_sq0, *, th_robust: float,
+               nearest: bool = False) -> torch.Tensor:
+    """(C, H, W) scores of candidate maps in one view (K1). Argument order
+    and layouts are those of the JAX package's ``score_view_pallas``."""
+    if depth.device.type == "cpu":
+        return score_view_plain(img, size, Hl, Hm, depth, normal, inv_nd, X0,
+                                goff, w, wtm, sum_w, norm_sq0,
+                                th_robust=th_robust, nearest=nearest)[0]
+    score, _ = _launch(img, size, Hl, Hm, None, None, None, depth, normal,
+                       inv_nd, X0, None, goff, w, wtm, sum_w, norm_sq0,
+                       th_robust, nearest, geom=False)
+    LAUNCHES["score_view_nn" if nearest else "score_view_exact"] += 1
+    return score
+
+
+def score_view_geom(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0,
+                    uv, goff, w, wtm, sum_w, norm_sq0, *, th_robust: float,
+                    nearest: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(score, cons), each (C, H, W) (K2): K1's score and the geometric
+    penalty against the neighbour depth map ``dm``. ``Hl``/``Hm`` serve as
+    the forward transform of the geometric term too (``Tl == Hl`` and
+    ``Tm == Hm`` in packed data). Argument order and layouts are those of
+    the JAX package's ``score_view_geom_pallas``."""
+    if depth.device.type == "cpu":
+        s = score_view_plain(img, size, Hl, Hm, depth, normal, inv_nd, X0,
+                             goff, w, wtm, sum_w, norm_sq0,
+                             th_robust=th_robust, nearest=nearest)[0]
+        return s, geom_term_plain(dm, size, Hl, Hm, Tr, Tn, depth, X0, uv)
+    score, cons = _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal,
+                          inv_nd, X0, uv, goff, w, wtm, sum_w, norm_sq0,
+                          th_robust, nearest, geom=True)
+    LAUNCHES["score_view_geom_nn" if nearest else "score_view_geom_exact"] += 1
+    return score, cons

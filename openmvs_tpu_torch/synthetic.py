@@ -1,0 +1,129 @@
+"""Synthetic ground-truth scene for densify checks, built without OpenCV or
+a rasterizer.
+
+The scene of ``scripts/quality_harness.py:build_gt_scene`` (shape
+``smooth``): a textured height field z = 6 + bumps over [-3, 3]^2 seen by a
+row of fronto-parallel cameras, and a 600-point sparse cloud sampled from
+the height field's grid vertices with the same seeded generator. Where the
+harness rasterizes a 96x96 triangulation of the field, this module
+ray-marches the analytic surface per pixel, so its images and ground-truth
+depths are those of the smooth surface itself.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+from scipy.ndimage import gaussian_filter
+
+from openmvs_tpu_torch.convert import scene_from_arrays
+from openmvs_tpu_torch.scene import Scene
+
+
+def height(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    return (6.0 + 0.6 * np.sin(x * 1.3) * np.cos(y * 1.7)
+            + 0.3 * np.sin(2.9 * x + 1.0) * np.sin(2.3 * y))
+
+
+def texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """High-frequency smooth albedo so ZNCC has signal everywhere."""
+    t = (0.5 + 0.18 * np.sin(7.1 * x) * np.cos(6.3 * y)
+         + 0.14 * np.sin(13.7 * x + 2.0) + 0.12 * np.cos(11.3 * y + 1.0)
+         + 0.06 * np.sin(23.0 * x * y))
+    return np.clip(t, 0.02, 0.98)
+
+
+def camera_intrinsics(W: int, H: int) -> np.ndarray:
+    return np.array([[0.9 * W, 0, W / 2 - 0.5], [0, 0.9 * W, H / 2 - 0.5],
+                     [0, 0, 1.0]])
+
+
+def camera_center(i: int) -> np.ndarray:
+    return np.array([-1.6 + 0.8 * i, 0.15 * (i % 2), 0.0])
+
+
+def ray_march(K: np.ndarray, C: np.ndarray, W: int, H: int,
+              t_lo: float = 4.5, t_hi: float = 7.5, step: float = 0.02,
+              bisect_iters: int = 40) -> Tuple[np.ndarray, np.ndarray]:
+    """Depth (0 = miss) and the (x, y) surface point of every pixel of a
+    camera with identity rotation centred at C (depth == ray parameter)."""
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float64),
+                         np.arange(H, dtype=np.float64))
+    Kinv = np.linalg.inv(K)
+    dx = Kinv[0, 0] * uu + Kinv[0, 1] * vv + Kinv[0, 2]
+    dy = Kinv[1, 1] * vv + Kinv[1, 2]
+
+    def g(t):
+        return C[2] + t - height(C[0] + t * dx, C[1] + t * dy)
+
+    lo = np.full(uu.shape, np.nan)
+    t_prev = t_lo
+    g_prev = g(np.full(uu.shape, t_lo))
+    for t in np.arange(t_lo + step, t_hi + step / 2, step):
+        g_t = g(np.full(uu.shape, t))
+        first = np.isnan(lo) & (g_prev < 0) & (g_t >= 0)
+        lo[first] = t_prev
+        t_prev, g_prev = t, g_t
+    hit = ~np.isnan(lo)
+    a = np.where(hit, lo, t_lo)
+    b = a + step
+    for _ in range(bisect_iters):
+        m = 0.5 * (a + b)
+        below = g(m) < 0
+        a = np.where(below, m, a)
+        b = np.where(below, b, m)
+    t = 0.5 * (a + b)
+    x = C[0] + t * dx
+    y = C[1] + t * dy
+    hit &= (np.abs(x) <= 3.0) & (np.abs(y) <= 3.0)
+    return np.where(hit, t, 0.0), np.stack([x, y], -1)
+
+
+def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
+                   grid: int = 96, seed: int = 0
+                   ) -> Tuple[Scene, List[np.ndarray], dict]:
+    """(scene, gt_depths, arrays): the port's Scene, per-view float32
+    ground-truth depth maps (0 where a ray misses the surface), and the
+    arrays the scene was built from (for ``scene_from_arrays`` on either
+    package)."""
+    rng = np.random.default_rng(seed)
+    g = np.linspace(-3, 3, grid)
+    xx, yy = np.meshgrid(g, g)
+    verts = np.stack([xx, yy, height(xx, yy)], -1).reshape(-1, 3)
+
+    K = camera_intrinsics(W, H)
+    grays, gts, Cs = [], [], []
+    for i in range(n_views):
+        C = camera_center(i)
+        depth, xy = ray_march(K, C, W, H)
+        gray = np.where(depth > 0, texture(xy[..., 0], xy[..., 1]), 0.0)
+        grays.append(gaussian_filter(gray.astype(np.float32), 0.5,
+                                     mode="mirror"))
+        gts.append(depth.astype(np.float32))
+        Cs.append(C)
+
+    sel = rng.choice(len(verts), 600, replace=False)
+    arrays = dict(
+        grays=grays,
+        Ks=[K] * n_views,
+        Rs=[np.eye(3)] * n_views,
+        Cs=Cs,
+        points=verts[sel].astype(np.float32),
+        point_views=[np.arange(n_views, dtype=np.uint32)] * len(sel),
+    )
+    return scene_from_arrays(**arrays), gts, arrays
+
+
+def depth_quality(depth: np.ndarray, gt: np.ndarray, rel: float = 0.01
+                  ) -> Tuple[float, float]:
+    """(accuracy, completeness) of one depth map against ground truth:
+    the share of valid depths within ``rel`` relative error of the truth
+    (a depth where the truth is empty counts as wrong), and the share of
+    ground-truth pixels that got a depth."""
+    valid = depth > 0
+    has_gt = gt > 0
+    good = valid & has_gt & (np.abs(depth - gt) < rel * np.where(has_gt, gt, 1))
+    acc = float(good.sum() / max(int(valid.sum()), 1))
+    comp = float((valid & has_gt).sum() / max(int(has_gt.sum()), 1))
+    return acc, comp

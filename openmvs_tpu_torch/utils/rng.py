@@ -1,0 +1,90 @@
+"""Bit-exact host copy of the ``jax.random`` key derivation the PatchMatch
+path uses, and the position-anchored block hash built on it.
+
+Keys are ``(k0, k1)`` tuples of Python ints, the two uint32 words of a raw
+threefry2x32 key (``jax.random.PRNGKey``/``key_data`` layout). Derivation
+runs on the host: the sweep schedule derives a few dozen keys per depth map,
+so there is nothing to gain from device code and the values stay exact.
+
+``block_uniform`` (counterpart of ``openmvs_tpu/ops/patchmatch.py:687-720``)
+runs in torch. torch has no usable uint32 arithmetic, so words are int64
+masked to 32 bits, and multiplies by 32-bit constants are split into 16-bit
+halves so no product leaves int64.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Key = Tuple[int, int]
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(key: Key, x0: int, x1: int) -> Key:
+    """One threefry2x32 block (20 rounds), as jax's ``threefry2x32_p``."""
+    k0, k1 = key[0] & _M32, key[1] & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def prng_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit integer seed."""
+    if not -(1 << 31) <= seed < (1 << 32):
+        raise ValueError("seed must fit in 32 bits")
+    return 0, seed & _M32
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``."""
+    return threefry2x32(key, 0, data & _M32)
+
+
+def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
+    """``jax.random.split(key, num)`` under partitionable threefry (the
+    default of jax 0.9): key i is the block of counter (0, i)."""
+    return tuple(threefry2x32(key, 0, i) for i in range(num))
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2**32 for int64 h in [0, 2**32) and a 32-bit constant."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+BLOCK = 8
+
+
+def block_uniform(key: Key, uv: torch.Tensor, minval: float = 0.0,
+                  maxval: float = 1.0) -> torch.Tensor:
+    """Per-BLOCKxBLOCK-tile uniforms hashed from (key, global block coords).
+
+    uv: (H, W, 2) float pixel coordinates. Bit-identical to the JAX
+    package's ``_block_uniform``."""
+    bx = torch.div(uv[..., 0].to(torch.int64), BLOCK, rounding_mode="floor")
+    by = torch.div(uv[..., 1].to(torch.int64), BLOCK, rounding_mode="floor")
+    h = (key[0] ^ _mul32(bx & _M32, 0x85EBCA6B)
+         ^ _mul32(by & _M32, 0x9E3779B9) ^ key[1])
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    u = h.to(torch.float32) * (1.0 / 4294967296.0)
+    return minval + u * (maxval - minval)

@@ -1,0 +1,150 @@
+"""Shared helpers of the PyTorch port's parity tests: the same numpy inputs
+go through the JAX package (on the CPU) and through the port."""
+
+import numpy as np
+import torch
+
+from openmvs_tpu_torch import convert
+
+
+def to_numpy_dict(nt) -> dict:
+    """A JAX NamedTuple (PMData, PMState, PMViews) as a dict of numpy
+    arrays, nested NamedTuples as nested dicts."""
+    return {k: (to_numpy_dict(v) if hasattr(v, "_asdict") else np.asarray(v))
+            for k, v in nt._asdict().items()}
+
+
+def port_data(jax_data):
+    return convert.pm_data_from_numpy(to_numpy_dict(jax_data), "cpu")
+
+
+def port_state(jax_state):
+    return convert.pm_state_from_numpy(to_numpy_dict(jax_state), "cpu")
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C", copy=True))
+
+
+def make_case(h=120, w=160, v=2, geom=False, lowres=False, seed=0):
+    """(jax_data, jax_state, opts_jax, opts_port, cams) on the geometry of
+    ``__graft_entry__._make_example``: random images, a fronto-parallel
+    reference and neighbours shifted sideways. ``geom`` adds neighbour
+    depth maps with holes (the geometric constants), ``lowres`` a low-res
+    depth prior with gaps."""
+    import jax.numpy as jnp
+    from openmvs_tpu.config import DenseOptions
+    from openmvs_tpu.densify import _build_pm_data
+    from openmvs_tpu.geometry.camera import Camera
+    from openmvs_tpu.ops import patchmatch
+
+    from openmvs_tpu_torch.config import DenseOptions as PortOptions
+
+    rng = np.random.default_rng(seed)
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2 - 0.5], [0, f, h / 2 - 0.5], [0, 0, 1.0]])
+    ref_cam = Camera(K, np.eye(3), np.zeros(3))
+    nbr_cams = [Camera(K, np.eye(3), np.array([0.3 * (j + 1), 0.05 * j, 0.0]))
+                for j in range(v)]
+    ref = rng.uniform(0, 1, (h, w)).astype(np.float32)
+    nbrs = [rng.uniform(0, 1, (h, w)).astype(np.float32) for _ in range(v)]
+    nbr_depths = None
+    if geom:
+        r2 = np.random.default_rng(7)
+        nbr_depths = []
+        for _ in range(v):
+            dm = np.full((h, w), 5.0, np.float32) * (
+                1 + 0.002 * r2.standard_normal((h, w))).astype(np.float32)
+            dm[r2.random((h, w)) < 0.2] = 0.0
+            nbr_depths.append(dm)
+    prior = None
+    if lowres:
+        r3 = np.random.default_rng(11)
+        prior = (5.0 * (1 + 0.02 * r3.standard_normal((h, w)))).astype(np.float32)
+        prior[r3.random((h, w)) < 0.3] = 0.0
+    opts = DenseOptions(sub_resolution_levels=0, estimation_iters=1)
+    data = _build_pm_data(ref, ref_cam, nbrs, nbr_cams, opts, 2.0, 10.0,
+                          prior, nbr_depths)
+    key = jnp.zeros(2, jnp.uint32)
+    seed_d = jnp.full((h, w), 5.0, jnp.float32)
+    seed_n = jnp.tile(jnp.asarray([0, 0, -1.0], jnp.float32), (h, w, 1))
+    state = patchmatch.init_state(data, opts, key, seed_d, seed_n, v, False)
+    popts = PortOptions(sub_resolution_levels=0, estimation_iters=1)
+    return data, state, opts, popts, dict(ref=ref, nbrs=nbrs, ref_cam=ref_cam,
+                                          nbr_cams=nbr_cams, prior=prior,
+                                          nbr_depths=nbr_depths)
+
+
+def candidates(data, state, slope=False, holes=False):
+    """Three candidate maps around the state (x0.95, x1, x1.05) as numpy:
+    (cd, cn, inv_nd). ``slope`` tilts the depths across the image,
+    ``holes`` zeroes 7% of them (invalid hypotheses)."""
+    d = np.asarray(state.depth)
+    n = np.asarray(state.normal)
+    X0 = np.asarray(data.X0)
+    cd = np.stack([d * s for s in (0.95, 1.0, 1.05)]).astype(np.float32)
+    if slope:
+        H, W = d.shape
+        yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+        cd = cd * (1.0 + 0.3 * (xx / W - 0.5) + 0.2 * (yy / H - 0.5)).astype(np.float32)[None]
+    if holes:
+        cd = np.where(np.random.default_rng(3).random(cd.shape) < 0.07, 0.0, cd)
+    cd = cd.astype(np.float32)
+    cn = np.stack([n] * 3).astype(np.float32)
+    den = np.einsum("chwk,hwk->chw", cn, X0) * cd
+    safe = np.abs(den) > 1e-12
+    inv_nd = np.where(safe, 1.0 / np.where(safe, den, 1.0), 0.0).astype(np.float32)
+    return cd, cn, inv_nd
+
+
+def jax_scene(arrays):
+    """JAX-package Scene from the arrays ``synthetic.build_gt_scene`` returns."""
+    from openmvs_tpu.geometry.camera import Camera
+    from openmvs_tpu.io import mvs as mvsio
+    from openmvs_tpu.scene import PointCloud, Scene, SceneImage
+
+    scene = Scene()
+    for i, gray in enumerate(arrays["grays"]):
+        meta = mvsio.ImageMeta(name=f"view{i:04d}", platform_id=i, id=i)
+        h, w = gray.shape
+        scene.images.append(SceneImage(
+            meta=meta, camera=Camera(arrays["Ks"][i], arrays["Rs"][i],
+                                     arrays["Cs"][i]),
+            width=w, height=h, gray=np.asarray(gray, np.float32)))
+    views = [np.asarray(v, np.uint32) for v in arrays["point_views"]]
+    scene.pointcloud = PointCloud(
+        points=np.asarray(arrays["points"], np.float32), views=views,
+        weights=[np.ones(len(v), np.float32) for v in views])
+    return scene
+
+
+# the slice-level comparison (tests/test_torch_estimate.py and
+# tests/test_torch_densify.py): the synthetic scene at 120x160 with three
+# views, one sub-resolution level, 4 iterations and one geometric pass
+SLICE_VIEWS = 3
+SLICE_OPTS = dict(sub_resolution_levels=1, estimation_iters=4,
+                  estimation_geometric_iters=1)
+
+
+def slice_scenes():
+    """(port scene, JAX-package scene) built from the same arrays."""
+    from openmvs_tpu_torch.synthetic import build_gt_scene
+
+    scene, _, arrays = build_gt_scene(n_views=SLICE_VIEWS, W=160, H=120)
+    return scene, jax_scene(arrays)
+
+
+def depth_agreement(port_maps, jax_maps):
+    """(per-view valid-mask agreement, depth agreement to 1e-3 relative
+    pooled over the pixels valid in both, per-view depth agreement)."""
+    masks, per_view = [], []
+    close = n_both = 0
+    for a, b in zip(port_maps, jax_maps):
+        va, vb = a > 0, b > 0
+        masks.append(float((va == vb).mean()))
+        both = va & vb
+        ok = np.abs(a - b)[both] < 1e-3 * b[both]
+        close += int(ok.sum())
+        n_both += int(both.sum())
+        per_view.append(float(ok.mean()))
+    return masks, close / max(n_both, 1), per_view

@@ -1,0 +1,103 @@
+"""The port's package boundary: what it imports, where it runs, and that a
+CPU tensor takes a kernel's plain version without counting a launch."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+torch.set_num_threads(1)
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import openmvs_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(openmvs_tpu_torch.__path__,
+                                               "openmvs_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = [k for k in ("jax", "cv2", "openmvs_tpu") if k in sys.modules]
+bad += [k for k in sys.modules if k.startswith(("jax.", "cv2.", "openmvs_tpu."))]
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_port_imports_no_jax_cv2_or_reference_package():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_default_device_raises_without_a_card():
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.synthetic import build_gt_scene
+    from openmvs_tpu_torch.utils import device
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        device.resolve("cuda")
+    scene, _, _ = build_gt_scene(n_views=2, W=48, H=32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        densify.dense_reconstruction(scene, DenseOptions())
+
+
+def _tiny_scorer_args(C=2, H=24, W=32):
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import patchmatch as tpm
+
+    r = np.random.default_rng(0)
+    opts = DenseOptions()
+    K = np.array([[28.0, 0, W / 2], [0, 28.0, H / 2], [0, 0, 1]])
+    Kinv = np.linalg.inv(K)
+    offs = tpm.texel_offsets(opts)
+    goff = np.concatenate([offs, np.zeros((len(offs), 1), np.float32)], -1) @ Kinv.T
+    data = tpm.pack_pm_data(
+        opts, r.uniform(0, 1, (H, W)), r.uniform(0, 1, (1, H, W)), [[H, W]],
+        K[None], [[2.0, 0.0, 0.0]], np.zeros((1, H, W)), np.zeros((1, 3, 3)),
+        np.zeros((1, 3)), np.zeros((1, 3, 3)), np.zeros((1, 3)),
+        Kinv.T.astype(np.float32), goff, 2.0, 10.0, np.zeros((H, W)),
+        np.ones((H, W), bool), device="cpu")
+    depth = torch.full((C, H, W), 5.0)
+    normal = torch.zeros(C, H, W, 3)
+    normal[..., 2] = -1.0
+    inv_nd = 1.0 / (tpm._dot3(normal, data.X0[None]) * depth)
+    v = data.views
+    return data, (v.image[0], v.size[0], v.Hl[0], v.Hm[0], depth, normal,
+                  inv_nd, data.X0, data.goff, data.w, data.wtm, data.sum_w,
+                  data.norm_sq0)
+
+
+def test_cpu_tensor_takes_plain_path_without_a_launch():
+    from openmvs_tpu_torch.ops import pm_kernel
+
+    data, args = _tiny_scorer_args()
+    pm_kernel.reset_launches()
+    s = pm_kernel.score_view(*args, th_robust=1.2)
+    s2, cons = pm_kernel.score_view_geom(
+        *args[:4], data.views.Tr[0], data.views.Tn[0], data.views.depth[0],
+        *args[4:8], data.uv, *args[8:], th_robust=1.2, nearest=True)
+    assert all(n == 0 for n in pm_kernel.LAUNCHES.values())
+    plain, _ = pm_kernel.score_view_plain(*args, th_robust=1.2)
+    assert torch.equal(s, plain)
+    assert s.shape == cons.shape == (2, 24, 32) and torch.isfinite(s).all()
+    # no neighbour depth: every candidate is geometrically inconsistent
+    assert torch.equal(cons, torch.full_like(cons, 4.0))
+
+
+def test_kernel_build_needs_the_cuda_toolkit(monkeypatch, tmp_path):
+    """Without nvcc the build raises a clear error (it never falls back)."""
+    from openmvs_tpu_torch.ops import _build
+
+    if _build.shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("the CUDA toolkit is installed")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library()
