@@ -1,11 +1,15 @@
-// PatchMatch scorer kernels K1 and K2 for Hopper (sm_90a).
+// PatchMatch scorer kernels K1 and K2 and the geometric kernel K3 for
+// Hopper (sm_90a).
 //
 // Replaces, in the JAX package (openmvs_tpu/ops/pm_kernel.py):
 //   K1  _score_view_pallas       (pm_kernel.py:819, pallas_call at :933)
 //   K2  _score_view_geom_pallas  (pm_kernel.py:979, pallas_call at :1106)
-// One template, pm_score<NEAREST, GEOM>: K1 is GEOM=false, K2 GEOM=true.
+//   K3  geom_term_pallas         (pm_kernel.py:691, pallas_call at :742)
+// K1 and K2 are one template, pm_score<NEAREST, GEOM>: K1 is GEOM=false, K2
+// GEOM=true. K3, pm_geom_term, is K2's geometric half on its own; both
+// call pm::geom_cons (pm_common.cuh).
 //
-// What it computes (the XLA CPU path, patchmatch.py:285-480, which the
+// What K1/K2 compute (the XLA CPU path, patchmatch.py:285-480, which the
 // port's plain versions in ops/pm_kernel.py repeat): for every candidate
 // c and pixel p, the 25 texels of a 9x9 window (step 2) are warped through
 // the plane-induced homography of (depth, normal) into the neighbour view,
@@ -16,7 +20,9 @@
 // or th_robust where the normaliser is <= 1e-16 or any texel warps out of
 // [1, w-2] x [1, h-2]. K2 also writes the forward-backward geometric
 // penalty min(sqrt(dist*(dist+2)), 4) against the neighbour depth map, or
-// 4 where the blend-then-check similarity test fails.
+// 4 where the blend-then-check similarity test fails. K3 writes only that
+// penalty, from the raw candidate depth (zeros mark invalid hypotheses)
+// and its own forward transform (Tl, Tm).
 //
 // Bound on an H100 at the main path's shape (C=11, 480x640, T=25): about
 // 50 fp32 operations per texel in exact mode (an fma counted as two) ->
@@ -25,6 +31,9 @@
 // So the bound is fp32 issue (nearest mode: about 37 operations per texel,
 // and the bytes bound it). chip_smoke.py computes it from each run's
 // shapes; in practice the scattered neighbour-image reads decide the time.
+// K3 moves the raw depth in and the penalty out (27 MB at C=11) plus X0,
+// uv and the depth map (7 MB) for about 83 operations per (c, p): it is
+// bound by bytes, about 10 us.
 //
 // Design (simple first): one thread per (candidate, pixel), a loop over
 // the texels; per-view constants (size, Hl, Hm, Tr, Tn, goff and the
@@ -33,69 +42,17 @@
 // bilinear blend is done by hand in fp32 (the texture unit's weights keep
 // only 8 fractional bits). The ZNCC epilogue is fused, and K2 computes the
 // geometric term in the same thread from the same back-projection. There
-// is no patch window and so no out-of-patch invalidation: those are
-// artefacts of the TPU's VMEM. Not done yet: shared-memory image tiles,
-// and fusing the view loop with the min-mean aggregation.
-//
-// Rounding: the plain version fuses the multiply-adds that XLA's CPU
-// backend fuses in the JAX package (utils/fmath.py), and the kernel writes
-// exactly those as __fmaf_rn. It is built with -fmad=false so nvcc
-// contracts nothing else, and without fast math (which would change
-// division and sqrt); the reciprocal square root is rounded from double.
-// Each rounding step is then the plain version's, so the kernel equals it
-// to the bit in all but rare double-rounding cases, and nearest sampling
-// at an exact .5 picks the same pixel.
+// is no patch window and so no out-of-patch invalidation or neutral 2.0 on
+// a window miss: those are artefacts of the TPU's VMEM. K1 with the
+// neighbour window staged in shared memory is K1-v2 (pm_score_v2.cu).
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // into a shared library with a plain C interface, loaded through ctypes
 // (ops/_build.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MAX_TEXELS 128
+#include "pm_common.cuh"
 
 namespace {
-
-struct ViewConsts {
-  float h, w;          // valid extent of the neighbour view
-  float hl[9], hm[3];  // plane-induced homography (Hl = Tl, Hm = Tm)
-  float tr[9], tn[3];  // back-projection of the geometric term
-};
-
-// Bilinear sample with the plain version's fused multiply-adds: each row
-// blends as fma(v_right, fx, v_left * (1 - fx)); the texel loop (TEXEL)
-// fuses the upper row's term of the vertical blend, the geometric term the
-// lower row's (the contractions XLA makes in the two places).
-template <bool TEXEL>
-__device__ __forceinline__ float bilinear(const float* __restrict__ img,
-                                          int Hp, int Wp, float x, float y) {
-  float x0 = floorf(x), y0 = floorf(y);
-  float fx = x - x0, fy = y - y0;
-  // fmaxf/fminf drop a NaN operand, so a non-finite coordinate (masked by
-  // the caller) still indexes inside the image
-  int xi = (int)fminf(fmaxf(x0, 0.f), (float)(Wp - 2));
-  int yi = (int)fminf(fmaxf(y0, 0.f), (float)(Hp - 2));
-  const float* r0 = img + (size_t)yi * Wp + xi;
-  float v00 = __ldg(r0), v01 = __ldg(r0 + 1);
-  float v10 = __ldg(r0 + Wp), v11 = __ldg(r0 + Wp + 1);
-  float top = __fmaf_rn(v01, fx, v00 * (1.f - fx));
-  float bot = __fmaf_rn(v11, fx, v10 * (1.f - fx));
-  return TEXEL ? __fmaf_rn(top, 1.f - fy, bot * fy)
-               : __fmaf_rn(bot, fy, top * (1.f - fy));
-}
-
-// Row r of M @ (a, b, c) as a fused multiply-add chain.
-__device__ __forceinline__ float row3(const float* m, float a, float b, float c) {
-  return __fmaf_rn(m[2], c, __fmaf_rn(m[1], b, m[0] * a));
-}
-
-__device__ __forceinline__ float nearest(const float* __restrict__ img,
-                                         int Hp, int Wp, float x, float y) {
-  int xi = (int)fminf(fmaxf(rintf(x), 0.f), (float)(Wp - 1));
-  int yi = (int)fminf(fmaxf(rintf(y), 0.f), (float)(Hp - 1));
-  return __ldg(img + (size_t)yi * Wp + xi);
-}
 
 template <bool NEAREST, bool GEOM>
 __global__ void __launch_bounds__(256)
@@ -111,7 +68,7 @@ pm_score(const float* __restrict__ img, int Hp, int Wp,
          const float* __restrict__ sum_w, const float* __restrict__ norm_sq0,
          float* __restrict__ score_out, float* __restrict__ cons_out,
          int C, int H, int W, float th_robust) {
-  __shared__ ViewConsts vc;
+  __shared__ pm::ViewConsts vc;
   __shared__ float s_goff[MAX_TEXELS * 3];
   __shared__ float s_sg[MAX_TEXELS * 3];  // Hl @ goff per texel
 
@@ -130,7 +87,7 @@ pm_score(const float* __restrict__ img, int Hp, int Wp,
   __syncthreads();
   for (int k = tid; k < T; k += blockDim.x) {
     float ga = s_goff[3 * k], gb = s_goff[3 * k + 1], gc = s_goff[3 * k + 2];
-    for (int r = 0; r < 3; ++r) s_sg[3 * k + r] = row3(vc.hl + 3 * r, ga, gb, gc);
+    for (int r = 0; r < 3; ++r) s_sg[3 * k + r] = pm::row3(vc.hl + 3 * r, ga, gb, gc);
   }
   __syncthreads();
 
@@ -148,11 +105,15 @@ pm_score(const float* __restrict__ img, int Hp, int Wp,
   const float* hm = vc.hm;
   const float h_j = vc.h, w_j = vc.w;
 
-  const float sx0 = row3(hl, xa, xb, xc);
-  const float sy0 = row3(hl + 3, xa, xb, xc);
-  const float sz0 = row3(hl + 6, xa, xb, xc);
+  const float sx0 = pm::row3(hl, xa, xb, xc);
+  const float sy0 = pm::row3(hl + 3, xa, xb, xc);
+  const float sz0 = pm::row3(hl + 6, xa, xb, xc);
   const float inv_d = 1.f / d;
 
+  // the texel loop is written out here rather than through the helpers
+  // K1-v2 uses (pm::pixel_warp, pm::warp_texel): the same arithmetic, but
+  // built through the helpers K1 took 0.41 ms in exact mode at C=11,
+  // 480x640 against 0.37 ms in this form (chip_smoke.py, H100 80GB HBM3)
   float num = 0.f, ssum = 0.f, ssq = 0.f;
   bool inb = true;
   for (int k = 0; k < T; ++k) {
@@ -166,48 +127,55 @@ pm_score(const float* __restrict__ img, int Hp, int Wp,
     const float izs = zok ? 1.f / sz : 0.f;
     const float px = sx * izs, py = sy * izs;
     inb = inb && zok && px >= 1.f && px <= w_j - 2.f && py >= 1.f && py <= h_j - 2.f;
-    const float val = NEAREST ? nearest(img, Hp, Wp, px, py)
-                              : bilinear<true>(img, Hp, Wp, px, py);
+    const float val = NEAREST ? pm::nearest(img, Hp, Wp, px, py)
+                              : pm::bilinear<true>(img, Hp, Wp, px, py);
     const float wk = w[(size_t)k * HW + p];
     const float wtmk = wtm[(size_t)k * HW + p];
     num = __fmaf_rn(val, wtmk, num);
     ssum = __fmaf_rn(val, wk, ssum);
     ssq = __fmaf_rn(val * val, wk, ssq);
   }
-  const float norm_sq1 = __fmaf_rn(-(ssum * ssum), 1.f / sum_w[p], ssq);
-  const float nrm_sq = norm_sq0[p] * norm_sq1;
-  // the reciprocal square root rounded from double: the same result as
-  // the plain version on every device (rsqrtf is approximate)
-  const float rs = (float)(1.0 / sqrt((double)fmaxf(nrm_sq, 1e-30f)));
-  const float ncc = fminf(fmaxf(num * rs, -1.f), 1.f);
-  score_out[i] = (nrm_sq <= 1e-16f || !inb) ? th_robust : 1.f - ncc;
+  score_out[i] = pm::zncc_score(num, ssum, ssq, sum_w[p], norm_sq0[p], inb, th_robust);
 
   if (GEOM) {
-    const float* tr = vc.tr;
-    const float* tn = vc.tn;
-    const float Xa = xa * d, Xb = xb * d, Xc = xc * d;
-    const float X1a = row3(hl, Xa, Xb, Xc) + hm[0];
-    const float X1b = row3(hl + 3, Xa, Xb, Xc) + hm[1];
-    const float z1 = row3(hl + 6, Xa, Xb, Xc) + hm[2];
-    const bool zok = z1 > 1e-8f;
-    const float iz = zok ? 1.f / z1 : 0.f;
-    const float x1 = X1a * iz, y1 = X1b * iz;
-    const bool inside = zok && d > 0.f && x1 >= 1.f && x1 <= w_j - 2.f &&
-                        y1 >= 1.f && y1 <= h_j - 2.f;
-    const float d1 = bilinear<false>(dm, Hd, Wd, x1, y1);
-    const bool similar = inside && d1 > 0.f && fabsf(z1 - d1) < 0.03f * z1;
-    const float ba = x1 * d1, bb = y1 * d1;
-    const float XBa = row3(tr, ba, bb, d1) + tn[0];
-    const float XBb = row3(tr + 3, ba, bb, d1) + tn[1];
-    const float zb = row3(tr + 6, ba, bb, d1) + tn[2];
-    const bool zbok = zb > 1e-8f;
-    const float izb = zbok ? 1.f / zb : 0.f;
-    const float du = __fmaf_rn(-XBa, izb, uv[2 * p]);
-    const float dv = __fmaf_rn(-XBb, izb, uv[2 * p + 1]);
-    const float dist = sqrtf(__fmaf_rn(du, du, dv * dv));
-    const float cons = fminf(sqrtf(dist * (dist + 2.f)), 4.f);
-    cons_out[i] = (similar && zbok) ? cons : 4.f;
+    // packed data has Tl == Hl and Tm == Hm, so K2 reuses the warp constants
+    cons_out[i] = pm::geom_cons(hl, hm, vc.tr, vc.tn, h_j, w_j, dm, Hd, Wd, d,
+                                xa, xb, xc, uv[2 * p], uv[2 * p + 1]);
   }
+}
+
+struct GeomConsts {
+  float h, w;
+  float tl[9], tm[3], tr[9], tn[3];
+};
+
+__global__ void __launch_bounds__(256)
+pm_geom_term_kernel(const float* __restrict__ dm, int Hd, int Wd,
+                    const float* __restrict__ size, const float* __restrict__ Tl,
+                    const float* __restrict__ Tm, const float* __restrict__ Tr,
+                    const float* __restrict__ Tn, const float* __restrict__ depth,
+                    const float* __restrict__ X0, const float* __restrict__ uv,
+                    float* __restrict__ cons_out, int C, int H, int W) {
+  __shared__ GeomConsts gc;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    gc.h = size[0];
+    gc.w = size[1];
+    for (int k = 0; k < 9; ++k) gc.tl[k] = Tl[k];
+    for (int k = 0; k < 3; ++k) gc.tm[k] = Tm[k];
+    for (int k = 0; k < 9; ++k) gc.tr[k] = Tr[k];
+    for (int k = 0; k < 3; ++k) gc.tn[k] = Tn[k];
+  }
+  __syncthreads();
+
+  const int HW = H * W;
+  const long long n = (long long)C * HW;
+  const long long i = (long long)blockIdx.x * blockDim.x + tid;
+  if (i >= n) return;
+  const int p = (int)(i % HW);
+  cons_out[i] = pm::geom_cons(gc.tl, gc.tm, gc.tr, gc.tn, gc.h, gc.w, dm, Hd, Wd,
+                              depth[i], X0[3 * p], X0[3 * p + 1], X0[3 * p + 2],
+                              uv[2 * p], uv[2 * p + 1]);
 }
 
 }  // namespace
@@ -249,6 +217,24 @@ int pm_score_view(const float* img, int Hp, int Wp, const float* size,
     else pm_score<false, false><<<blocks, threads, 0, s>>>(PM_ARGS);
   }
 #undef PM_ARGS
+  return (int)cudaGetLastError();
+}
+
+// Launch K3 on `stream`: cons (C, H, W) from the raw candidate depths
+// depth (C, H, W), X0 (H, W, 3), uv (H, W, 2) and the neighbour depth map
+// dm (Hd, Wd), in the layouts of the JAX package's geom_term_pallas.
+// Returns the CUDA error of the launch; does not synchronise.
+int pm_geom_term(const float* dm, int Hd, int Wd, const float* size,
+                 const float* Tl, const float* Tm, const float* Tr,
+                 const float* Tn, const float* depth, const float* X0,
+                 const float* uv, float* cons, int C, int H, int W,
+                 void* stream) {
+  const long long n = (long long)C * H * W;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  pm_geom_term_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      dm, Hd, Wd, size, Tl, Tm, Tr, Tn, depth, X0, uv, cons, C, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-"""Build and load the CUDA scorer library (``csrc/pm_score.cu``).
+"""Build and load the CUDA kernel libraries (``csrc/*.cu``).
 
-``nvcc`` compiles the source into a shared library with a plain C
-interface, keyed by a hash of the source and flags, under
-``openmvs_tpu_torch/_build/``; ``ctypes`` loads it. The first call in a
-fresh checkout builds (a few seconds); later calls reuse the library.
+``nvcc`` compiles each source into a shared library with a plain C
+interface; the sources build in parallel, one ``nvcc`` each, all started
+together. The libraries go under ``openmvs_tpu_torch/_build/<tag>/``,
+where the tag hashes every file under ``csrc/`` and the flags, and
+``ctypes`` loads them. The first call in a fresh checkout builds (a few
+seconds); later calls reuse the libraries. A failed build raises.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pm_score.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no contraction into fused multiply-adds, so every rounding
 # step equals the plain version's op for op. A fused multiply-add moves a
@@ -27,8 +29,50 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_TEXELS = 128
 
-_lib = None
-BUILD_INFO = {"seconds": None, "log": "", "path": None}
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every exported function, by library (source stem)
+SIGNATURES = {
+    "pm_score": {
+        "pm_score_view": [
+            P, I, I,            # img, Hp, Wp
+            P, P, P, P, P,      # size, Hl, Hm, Tr, Tn
+            P, I, I,            # dm, Hd, Wd
+            P, P, P, P, P,      # depth, normal, inv_nd, X0, uv
+            P, I, P, P,         # goff, T, w, wtm
+            P, P,               # sum_w, norm_sq0
+            P, P,               # score, cons
+            I, I, I, F, I, I,   # C, H, W, th_robust, nearest, geom
+            P,                  # stream
+        ],
+        "pm_geom_term": [
+            P, I, I,            # dm, Hd, Wd
+            P, P, P, P, P,      # size, Tl, Tm, Tr, Tn
+            P, P, P,            # depth, X0, uv
+            P,                  # cons
+            I, I, I,            # C, H, W
+            P,                  # stream
+        ],
+        "pm_max_texels": [],
+        "pm_error_string": [I],
+    },
+    "pm_score_v2": {
+        "pm_score_view_v2": [
+            P, I, I,            # img, Hp, Wp
+            P, P, P,            # size, Hl, Hm
+            P, P, P, P,         # depth, normal, inv_nd, X0
+            P, I, P, P,         # goff, T, w, wtm
+            P, P,               # sum_w, norm_sq0
+            P, P,               # score, in_window
+            I, I, I, F, I,      # C, H, W, th_robust, nearest
+            P,                  # stream
+        ],
+    },
+}
+RESTYPES = {"pm_error_string": ctypes.c_char_p}
+
+_libs = {}
+# per source: nvcc seconds and output (ptxas register and spill lines)
+BUILD_INFO = {"seconds": None, "sources": {}, "dir": None}
 
 
 def _nvcc() -> str:
@@ -43,48 +87,67 @@ def _nvcc() -> str:
     return found
 
 
-def library() -> ctypes.CDLL:
-    """The loaded scorer library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"pm_score_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-                           capture_output=True, text=True)
-        BUILD_INFO["seconds"] = time.perf_counter() - t0
-        BUILD_INFO["log"] = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_INFO['log']}")
-        os.replace(tmp, so)
-    BUILD_INFO["path"] = str(so)
-    lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.pm_score_view.restype = I
-    lib.pm_score_view.argtypes = [
-        P, I, I,            # img, Hp, Wp
-        P, P, P, P, P,      # size, Hl, Hm, Tr, Tn
-        P, I, I,            # dm, Hd, Wd
-        P, P, P, P, P,      # depth, normal, inv_nd, X0, uv
-        P, I, P, P,         # goff, T, w, wtm
-        P, P,               # sum_w, norm_sq0
-        P, P,               # score, cons
-        I, I, I, ctypes.c_float, I, I,  # C, H, W, th_robust, nearest, geom
-        P,                  # stream
-    ]
-    lib.pm_error_string.restype = ctypes.c_char_p
-    lib.pm_error_string.argtypes = [I]
-    lib.pm_max_texels.restype = I
-    if lib.pm_max_texels() != MAX_TEXELS:
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _tag() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Build every source under csrc/ (in parallel, one nvcc each) unless
+    this tag's libraries exist; returns their directory."""
+    out = BUILD_DIR / _tag()
+    todo = [s for s in sources() if not (out / f"{s.stem}.so").exists()]
+    BUILD_INFO["dir"] = str(out)
+    if not todo:
+        return out
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in todo:
+        tmp = out / f"{src.stem}.{os.getpid()}.tmp.so"
+        procs.append((src, tmp, time.perf_counter(), subprocess.Popen(
+            [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, tmp, t_start, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_INFO["sources"][src.name] = {
+            "seconds": time.perf_counter() - t_start, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out / f"{src.stem}.so")
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return out
+
+
+def library(name: str = "pm_score") -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (all sources are
+    built on first use)."""
+    if name in _libs:
+        return _libs[name]
+    if name not in SIGNATURES:
+        raise KeyError(f"no kernel library {name!r}")
+    lib = ctypes.CDLL(str(build() / f"{name}.so"))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = RESTYPES.get(fn, I)
+    if name == "pm_score" and lib.pm_max_texels() != MAX_TEXELS:
         raise RuntimeError("pm_score library and wrapper disagree on MAX_TEXELS")
-    _lib = lib
+    _libs[name] = lib
     return lib
 
 
 def error_string(code: int) -> str:
-    return library().pm_error_string(code).decode()
+    return library("pm_score").pm_error_string(code).decode()

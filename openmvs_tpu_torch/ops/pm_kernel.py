@@ -1,4 +1,4 @@
-"""The PatchMatch scorer kernels K1 and K2: wrappers, plain versions and
+"""The PatchMatch kernels K1, K2, K3 and K1-v2: wrappers, plain versions and
 launch counts.
 
 K1, ``score_view``, replaces ``_score_view_pallas``
@@ -6,14 +6,21 @@ K1, ``score_view``, replaces ``_score_view_pallas``
 candidate planes against one neighbour view. K2, ``score_view_geom``,
 replaces ``_score_view_geom_pallas`` (``pm_kernel.py:979``): K1's score and
 the forward-backward geometric-consistency penalty of each candidate, from
-one launch. Both are CUDA kernels in ``csrc/pm_score.cu``, built on first
-use (``ops/_build.py``).
+one launch. K3, ``geom_term``, replaces ``geom_term_pallas``
+(``pm_kernel.py:691``): the geometric penalty alone. K1-v2,
+``score_view_v2``, replaces ``score_view_v2``
+(``scripts/dev_kernel_variants.py:282``): K1 with the neighbour image
+window staged in shared memory. K1, K2 and K3 are CUDA kernels in
+``csrc/pm_score.cu``, K1-v2 in ``csrc/pm_score_v2.cu``, built on first use
+(``ops/_build.py``).
 
 The plain versions here are the port of the JAX package's XLA CPU path
 (``_score_one_view_scan`` and ``_geometric_term``, patchmatch.py:285-480).
-The kernels compute what they compute, not what the Pallas kernel computes
+The kernels compute what they compute, not what the Pallas kernels compute
 where the two differ: nearest sampling rounds both axes half-to-even,
-``sum_w`` is divided unclamped, and the geometric term has no window.
+``sum_w`` is divided unclamped, and the geometric term has no window. K1-v2
+equals K1 bit for bit: its window changes where a sample is read from,
+never its value.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; each launch adds one to its entry of
@@ -27,10 +34,12 @@ from typing import Tuple
 
 import torch
 
+from openmvs_tpu_torch.ops import _build
 from openmvs_tpu_torch.utils.fmath import fma, rsqrt
 
 LAUNCHES = {"score_view_exact": 0, "score_view_nn": 0,
-            "score_view_geom_exact": 0, "score_view_geom_nn": 0}
+            "score_view_geom_exact": 0, "score_view_geom_nn": 0,
+            "geom_term": 0, "score_view_v2_exact": 0, "score_view_v2_nn": 0}
 
 
 def reset_launches() -> None:
@@ -169,61 +178,103 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0, uv,
-            goff, w, wtm, sum_w, norm_sq0, th_robust, nearest, geom):
-    from openmvs_tpu_torch.ops import _build
+def _check_2d(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"{name}: {t.dim()}-D, expected 2-D")
 
+
+def _candidate_shape(depth: torch.Tensor):
+    if depth.dim() != 3:
+        raise ValueError(f"depth: {depth.dim()}-D, expected (C, H, W)")
+    return tuple(depth.shape)
+
+
+def check_scorer_operands(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff,
+                          w, wtm, sum_w, norm_sq0, Tr=None, Tn=None, dm=None,
+                          uv=None) -> None:
+    """Raise unless the operands are what K1, K1-v2 and (with Tr, Tn, dm,
+    uv) K2 take: contiguous float32 tensors on depth's device, in the
+    layouts of the JAX package's score_view_pallas."""
     dev = depth.device
-    if dev.type != "cuda":
-        raise ValueError(f"scorer kernel: tensors on {dev}, expected cuda or cpu")
-    C, H, W = depth.shape
+    C, H, W = _candidate_shape(depth)
+    if goff.dim() != 2 or not 1 <= goff.shape[0] <= _build.MAX_TEXELS:
+        raise ValueError(f"goff: shape {tuple(goff.shape)}, expected (T, 3) "
+                         f"with 1 <= T <= {_build.MAX_TEXELS}")
     T = goff.shape[0]
-    if T > _build.MAX_TEXELS:
-        raise ValueError(f"scorer kernel: {T} texels, at most {_build.MAX_TEXELS}")
+    _check_2d("img", img)
     ops = dict(img=(img, img.shape), size=(size, (2,)), Hl=(Hl, (3, 3)),
                Hm=(Hm, (3,)), depth=(depth, (C, H, W)),
                normal=(normal, (C, H, W, 3)), inv_nd=(inv_nd, (C, H, W)),
                X0=(X0, (H, W, 3)), goff=(goff, (T, 3)), w=(w, (T, H, W)),
                wtm=(wtm, (T, H, W)), sum_w=(sum_w, (H, W)),
                norm_sq0=(norm_sq0, (H, W)))
-    if geom:
+    if dm is not None:
+        _check_2d("dm", dm)
         ops.update(Tr=(Tr, (3, 3)), Tn=(Tn, (3,)), dm=(dm, dm.shape),
                    uv=(uv, (H, W, 2)))
     for name, (t, shape) in ops.items():
         _check(name, t, shape, dev)
-    if img.dim() != 2 or (geom and dm.dim() != 2):
-        raise ValueError("scorer kernel: img and dm must be 2-D")
+
+
+def check_geom_operands(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> None:
+    """Raise unless the operands are what K3 takes: contiguous float32
+    tensors on depth's device, in the layouts of geom_term_pallas."""
+    dev = depth.device
+    C, H, W = _candidate_shape(depth)
+    _check_2d("dm", dm)
+    ops = dict(dm=(dm, dm.shape), size=(size, (2,)), Tl=(Tl, (3, 3)),
+               Tm=(Tm, (3,)), Tr=(Tr, (3, 3)), Tn=(Tn, (3,)),
+               depth=(depth, (C, H, W)), X0=(X0, (H, W, 3)), uv=(uv, (H, W, 2)))
+    for name, (t, shape) in ops.items():
+        _check(name, t, shape, dev)
+
+
+def _cuda_device(depth: torch.Tensor) -> torch.device:
+    if depth.device.type != "cuda":
+        raise ValueError(f"kernel: tensors on {depth.device}, expected cuda or cpu")
+    return depth.device
+
+
+def _raise_on(rc: int, fn: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: {_build.error_string(rc)}")
+
+
+def _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0, uv,
+            goff, w, wtm, sum_w, norm_sq0, th_robust, nearest, geom):
+    dev = _cuda_device(depth)
+    check_scorer_operands(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff,
+                          w, wtm, sum_w, norm_sq0, *((Tr, Tn, dm, uv) if geom else ()))
+    C, H, W = depth.shape
     score = torch.empty_like(depth)
     cons = torch.empty_like(depth) if geom else None
-    lib = _build.library()
+    lib = _build.library("pm_score")
     null = ctypes.c_void_p(0)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pm_score_view(
-        _ptr(img), img.shape[0], img.shape[1],
-        _ptr(size), _ptr(Hl), _ptr(Hm),
-        _ptr(Tr) if geom else null, _ptr(Tn) if geom else null,
-        _ptr(dm) if geom else null,
-        dm.shape[0] if geom else 0, dm.shape[1] if geom else 0,
-        _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(X0),
-        _ptr(uv) if geom else null,
-        _ptr(goff), T, _ptr(w), _ptr(wtm), _ptr(sum_w), _ptr(norm_sq0),
-        _ptr(score), _ptr(cons) if geom else null,
-        C, H, W, ctypes.c_float(th_robust), int(nearest), int(geom),
-        ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"pm_score_view launch failed: {_build.error_string(rc)}")
+        rc = lib.pm_score_view(
+            _ptr(img), img.shape[0], img.shape[1],
+            _ptr(size), _ptr(Hl), _ptr(Hm),
+            _ptr(Tr) if geom else null, _ptr(Tn) if geom else null,
+            _ptr(dm) if geom else null,
+            dm.shape[0] if geom else 0, dm.shape[1] if geom else 0,
+            _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(X0),
+            _ptr(uv) if geom else null,
+            _ptr(goff), goff.shape[0], _ptr(w), _ptr(wtm), _ptr(sum_w),
+            _ptr(norm_sq0), _ptr(score), _ptr(cons) if geom else null,
+            C, H, W, ctypes.c_float(th_robust), int(nearest), int(geom),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "pm_score_view")
     return score, cons
 
 
@@ -261,3 +312,65 @@ def score_view_geom(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0,
                           th_robust, nearest, geom=True)
     LAUNCHES["score_view_geom_nn" if nearest else "score_view_geom_exact"] += 1
     return score, cons
+
+
+def geom_term(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
+    """(C, H, W) geometric penalty in [0, 4] of C candidate depth maps
+    against one neighbour depth map (K3). ``depth`` is raw: zeros mark
+    invalid hypotheses, which are never consistent. ``Tl``/``Tm`` are taken
+    as given. Argument order and layouts are those of the JAX package's
+    ``geom_term_pallas``."""
+    if depth.device.type == "cpu":
+        return geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv)
+    dev = _cuda_device(depth)
+    check_geom_operands(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv)
+    C, H, W = depth.shape
+    cons = torch.empty_like(depth)
+    lib = _build.library("pm_score")
+    with torch.cuda.device(dev):
+        rc = lib.pm_geom_term(
+            _ptr(dm), dm.shape[0], dm.shape[1], _ptr(size), _ptr(Tl), _ptr(Tm),
+            _ptr(Tr), _ptr(Tn), _ptr(depth), _ptr(X0), _ptr(uv), _ptr(cons),
+            C, H, W, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "pm_geom_term")
+    LAUNCHES["geom_term"] += 1
+    return cons
+
+
+def score_view_v2(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
+                  sum_w, norm_sq0, *, th_robust: float, nearest: bool = False,
+                  in_window: torch.Tensor = None) -> torch.Tensor:
+    """(C, H, W) scores (K1-v2): K1's function, bit for bit, with each
+    block's window of the neighbour image staged in shared memory. Argument
+    order and layouts are K1's. ``in_window``, an optional (C, H, W) uint8
+    tensor on the card, receives 1 where every texel of the (candidate,
+    pixel) was read from the window; the plain version has no window and
+    takes none."""
+    if depth.device.type == "cpu":
+        if in_window is not None:
+            raise ValueError("in_window: only the kernel stages a window")
+        return score_view_plain(img, size, Hl, Hm, depth, normal, inv_nd, X0,
+                                goff, w, wtm, sum_w, norm_sq0,
+                                th_robust=th_robust, nearest=nearest)[0]
+    dev = _cuda_device(depth)
+    check_scorer_operands(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff,
+                          w, wtm, sum_w, norm_sq0)
+    C, H, W = depth.shape
+    if C > 65535:
+        raise ValueError(f"score_view_v2: {C} candidates, at most 65535")
+    if in_window is not None:
+        _check("in_window", in_window, (C, H, W), dev, torch.uint8)
+    score = torch.empty_like(depth)
+    lib = _build.library("pm_score_v2")
+    with torch.cuda.device(dev):
+        rc = lib.pm_score_view_v2(
+            _ptr(img), img.shape[0], img.shape[1], _ptr(size), _ptr(Hl),
+            _ptr(Hm), _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(X0),
+            _ptr(goff), goff.shape[0], _ptr(w), _ptr(wtm), _ptr(sum_w),
+            _ptr(norm_sq0), _ptr(score),
+            _ptr(in_window) if in_window is not None else ctypes.c_void_p(0),
+            C, H, W, ctypes.c_float(th_robust), int(nearest),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "pm_score_view_v2")
+    LAUNCHES["score_view_v2_nn" if nearest else "score_view_v2_exact"] += 1
+    return score

@@ -97,6 +97,57 @@ def candidates(data, state, slope=False, holes=False):
     return cd, cn, inv_nd
 
 
+def example(h=120, w=160):
+    """(data, opts, cd, cn) of ``__graft_entry__._make_example`` with three
+    candidate planes (x0.95, x1, x1.05 the state), as JAX arrays."""
+    import __graft_entry__ as ge
+    import jax.numpy as jnp
+
+    data, state, opts, _ = ge._make_example(h=h, w=w, v=2)
+    cd = jnp.tile(state.depth[None], (3, 1, 1)) * jnp.asarray([0.95, 1.0, 1.05])[:, None, None]
+    cn = jnp.tile(state.normal[None], (3, 1, 1, 1))
+    return data, opts, cd, cn
+
+
+def inv_nd(cn, X0, cd):
+    """1 / (n . X0 * d), 0 where the denominator vanishes, in JAX."""
+    import jax.numpy as jnp
+
+    den = jnp.einsum("chwk,hwk->chw", cn, X0) * cd
+    safe = jnp.abs(den) > 1e-12
+    return jnp.where(safe, 1.0 / jnp.where(safe, den, 1.0), 0.0)
+
+
+def geom_case(h=120, w=160):
+    """``example`` with sloped candidate depths, 7% of them zero, and a
+    neighbour depth map with 20% holes (``test_pm_kernel._geom_parity_case``):
+    (data, opts, cd, cn, dm)."""
+    import jax.numpy as jnp
+
+    data, opts, cd, cn = example(h, w)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    slope = (1.0 + 0.3 * (xx / w - 0.5) + 0.2 * (yy / h - 0.5)).astype(np.float32)
+    cd = np.asarray(cd) * slope[None]
+    cd = np.where(np.random.default_rng(3).random(cd.shape) < 0.07, 0.0, cd)
+    cd = jnp.asarray(cd.astype(np.float32))
+    rng = np.random.default_rng(7)
+    dm = np.full(np.asarray(data.views.image[0]).shape, float(np.median(np.asarray(cd))),
+                 np.float32)
+    dm[rng.random(dm.shape) < 0.2] = 0.0
+    return data, opts, cd, cn, jnp.asarray(dm)
+
+
+def equal_share(js, ps) -> float:
+    """Share of pixels whose (depth, normal, conf) state is the same in a
+    JAX and a port PMState: depth to 1e-6 relative, normal and confidence
+    to 1e-5 (the same winner, up to the last ulps of the score)."""
+    d, n, c = (np.asarray(x) for x in js)
+    pdp, pn, pc = (x.numpy() for x in ps)
+    same = ((np.abs(pdp - d) <= 1e-6 * np.abs(d))
+            & (np.abs(pn - n).max(-1) <= 1e-5) & (np.abs(pc - c) <= 1e-5))
+    return float(same.mean())
+
+
 def jax_scene(arrays):
     """JAX-package Scene from the arrays ``synthetic.build_gt_scene`` returns."""
     from openmvs_tpu.geometry.camera import Camera

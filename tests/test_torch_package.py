@@ -83,7 +83,12 @@ def test_cpu_tensor_takes_plain_path_without_a_launch():
     s2, cons = pm_kernel.score_view_geom(
         *args[:4], data.views.Tr[0], data.views.Tn[0], data.views.depth[0],
         *args[4:8], data.uv, *args[8:], th_robust=1.2, nearest=True)
+    v = data.views
+    cons3 = pm_kernel.geom_term(v.depth[0], v.size[0], v.Tl[0], v.Tm[0],
+                                v.Tr[0], v.Tn[0], args[4], data.X0, data.uv)
+    s_v2 = pm_kernel.score_view_v2(*args, th_robust=1.2)
     assert all(n == 0 for n in pm_kernel.LAUNCHES.values())
+    assert torch.equal(cons3, cons) and torch.equal(s_v2, s)
     plain, _ = pm_kernel.score_view_plain(*args, th_robust=1.2)
     assert torch.equal(s, plain)
     assert s.shape == cons.shape == (2, 24, 32) and torch.isfinite(s).all()
@@ -97,7 +102,7 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch, tmp_path):
 
     if _build.shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("the CUDA toolkit is installed")
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()

@@ -20,43 +20,15 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_helpers import example as _example  # noqa: E402
+from _torch_helpers import geom_case as _geom_case  # noqa: E402
+from _torch_helpers import inv_nd as _inv_nd  # noqa: E402
 from _torch_helpers import port_data, t  # noqa: E402
 
 from openmvs_tpu.ops import patchmatch as jpm  # noqa: E402
 from openmvs_tpu_torch.ops import pm_kernel as tk  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _example(h=120, w=160):
-    import __graft_entry__ as ge
-
-    data, state, opts, _ = ge._make_example(h=h, w=w, v=2)
-    cd = jnp.tile(state.depth[None], (3, 1, 1)) * jnp.asarray([0.95, 1.0, 1.05])[:, None, None]
-    cn = jnp.tile(state.normal[None], (3, 1, 1, 1))
-    return data, opts, cd, cn
-
-
-def _inv_nd(cn, X0, cd):
-    den = jnp.einsum("chwk,hwk->chw", cn, X0) * cd
-    safe = jnp.abs(den) > 1e-12
-    return jnp.where(safe, 1.0 / jnp.where(safe, den, 1.0), 0.0)
-
-
-def _geom_case(h=120, w=160):
-    """Sloped candidate depths with 7% zeros and a neighbour depth map with
-    20% holes (``test_pm_kernel._geom_parity_case``)."""
-    data, opts, cd, cn = _example(h, w)
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    slope = (1.0 + 0.3 * (xx / w - 0.5) + 0.2 * (yy / h - 0.5)).astype(np.float32)
-    cd = np.asarray(cd) * slope[None]
-    cd = np.where(np.random.default_rng(3).random(cd.shape) < 0.07, 0.0, cd)
-    cd = jnp.asarray(cd.astype(np.float32))
-    rng = np.random.default_rng(7)
-    dm = np.full(np.asarray(data.views.image[0]).shape, float(np.median(np.asarray(cd))),
-                 np.float32)
-    dm[rng.random(dm.shape) < 0.2] = 0.0
-    return data, opts, cd, cn, jnp.asarray(dm)
 
 
 def _port_args(data, cd, cn, inv_nd, j=0):

@@ -19,6 +19,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_helpers import equal_share as _equal_share  # noqa: E402
 from _torch_helpers import make_case, port_data, port_state, t  # noqa: E402
 
 from openmvs_tpu.ops import patchmatch as jpm  # noqa: E402
@@ -40,14 +41,6 @@ def case():
     key = jax.random.PRNGKey(5)
     st = jpm.sweep(state, data, jo, key, V, mode="nn", fold=1)
     return data, st, jo, po, key
-
-
-def _equal_share(js, ps):
-    d, n, c = (np.asarray(x) for x in js)
-    pdp, pn, pc = (x.numpy() for x in ps)
-    same = ((np.abs(pdp - d) <= 1e-6 * np.abs(d))
-            & (np.abs(pn - n).max(-1) <= 1e-5) & (np.abs(pc - c) <= 1e-5))
-    return float(same.mean())
 
 
 @pytest.mark.parametrize("parity", [0, 1])
