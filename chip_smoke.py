@@ -7,28 +7,40 @@ Phases, each printing one JSON line:
   1. device     - fails without CUDA; prints the card's name and power limit
   2. build      - builds the CUDA kernels from csrc/ (one nvcc per source,
                   all started together; sm_90a)
-  3. kernels    - K1 (exact, nn), K2, K3 and K1-v2 (exact, nn) at the main
-                  path's shapes against their plain PyTorch versions on the
-                  card, with timings; K1-v2 also against K1, bit for bit
+  3. kernels    - the multi-view scorer K1-mv (exact, nn), K2-mv (exact) and
+                  its precomputed-term mode (exact), and the per-view K1
+                  (exact, nn), K2, K3 and K1-v2 (exact, nn), at the main
+                  path's shapes (C=11 and C=1) against their plain PyTorch
+                  versions on the card, with timings; the multi-view rows
+                  bit for bit (NaN included), and against the per-view route
+                  they replace (V launches of K1 or K2 plus the PyTorch
+                  epilogue), timed in the same call; K1-v2 against K1
   4. variants   - K1 against K1-v2 on the dev script's inputs (C=11,
                   480x640, T=25): times, and the share of (candidate, pixel)s
                   whose texels all came from K1-v2's staged window
   5. densify    - the synthetic 5-view 480x640 scene through
                   densify.dense_reconstruction(scene, DenseOptions()) on the
-                  card: throughput, point count, kernel launches, and depth
-                  accuracy/completeness per view against ground truth, held
-                  to 95% of what the JAX package reaches on the same scene
-  6. geom_split - the same under OMVS_GEOM_SPLIT=1 (geometric sweeps split
-                  into candidates, K3, then K1 and selection): K3 and K2
-                  launches, quality, and agreement with phase densify's maps
-  7. parity     - the same scene at 120x160 on the card against the port's
+                  card: throughput, point count, kernel launches (one
+                  multi-view launch per score_hypotheses call, no per-view
+                  K1/K2), and depth accuracy/completeness per view against
+                  ground truth, held to 95% of what the JAX package reaches
+                  on the same scene
+  6. profile    - torch.profiler over one view's photometric
+                  estimate_depth_map at 480x640: device-busy share, the top
+                  10 device kernels by time, launches, host time per sweep
+  7. geom_split - the same under OMVS_GEOM_SPLIT=1 (geometric sweeps split
+                  into candidates, K3, then the scorer with the terms
+                  precomputed, and selection): launches, quality, and
+                  agreement with phase densify's maps
+  8. parity     - the same scene at 120x160 on the card against the port's
                   plain versions on the CPU
-  8. geom_unfused - the 120x160 scene on the card under OMVS_GEOM_FUSED=0
-                  (K1 + K3 in place of K2) against phase parity's card maps
-Each of phases 4-6 and 8 sets the launch counts to 0 just before the path
-it drives and reads them just after. Then the {"kernels": [...]} line and,
-last, {"ok": true, "device": ...}. Any failure raises and exits non-zero.
-Imports nothing of JAX.
+  9. geom_unfused - the 120x160 scene on the card under OMVS_GEOM_FUSED=0
+                  (K3, then the precomputed mode, in place of K2-mv) against
+                  phase parity's card maps
+Each of phases 4, 5, 7 and 9 sets the launch counts to 0 just before the
+path it drives and reads them just after. Then the {"kernels": [...]} line
+and, last, {"ok": true, "device": ...}. Any failure raises and exits
+non-zero. Imports nothing of JAX.
 """
 
 import json
@@ -60,6 +72,11 @@ PEAK_BYTES = 3.35e12
 FLOP_TEXEL = {"exact": 50, "nn": 37}
 FLOP_PIXEL = 44
 FLOP_GEOM = 83
+# of FLOP_TEXEL, the view-independent part of the texel warp (n . goff and
+# the scale), which the multi-view scorer computes once for all views
+FLOP_SHARED = 7
+# per view and (c, p), finish_view and the best-two fold
+FLOP_FINISH = 10
 # (launch-counter name, sampling mode, kind): K1, K2 and K1-v2 in the modes
 # the kernel sources instantiate, and K3; K2 in "nn" mode is not on the
 # main path (geometric passes score exact) and is checked here only
@@ -70,10 +87,23 @@ KERNELS = (("score_view_exact", "exact", "k1"),
            ("geom_term", "exact", "k3"),
            ("score_view_v2_exact", "exact", "v2"),
            ("score_view_v2_nn", "nn", "v2"))
-MAIN_PATH = ("score_view_exact", "score_view_nn", "score_view_geom_exact")
+# the multi-view scorer: (counter, sampling mode, geometric mode) on the
+# main path (geometric passes score exact; the precomputed mode serves the
+# split sweep and OMVS_GEOM_FUSED=0)
+VIEW_KERNELS = (("score_views_exact", "exact", "none"),
+                ("score_views_nn", "nn", "none"),
+                ("score_views_geom_exact", "exact", "geom"),
+                ("score_views_pre_exact", "exact", "pre"))
+MAIN_PATH = ("score_views_exact", "score_views_nn", "score_views_geom_exact")
+PER_VIEW = ("score_view_exact", "score_view_nn", "score_view_geom_exact",
+            "score_view_geom_nn")
 # the {"kernels": [...]} line: (counter, source, TPU kernel replaced, the
 # phase whose run gives the launches)
 KERNEL_LINE = (
+    ("score_views_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
+    ("score_views_nn", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
+    ("score_views_geom_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:979", "densify"),
+    ("score_views_pre_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "geom_split"),
     ("score_view_exact", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
     ("score_view_nn", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
     ("score_view_geom_exact", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:979", "densify"),
@@ -141,13 +171,17 @@ def phase_build():
         _build.library(name)
     sources = {}
     for name, info in _build.BUILD_INFO["sources"].items():
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                            info["log"])
+        # per entry function (kernel): registers and spill bytes; the spill
+        # lines of called functions (the division slow paths) do not count
+        kernels = re.findall(
+            r"Function properties for (\w+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers",
+            info["log"])
         sources[name] = {
             "nvcc_seconds": info["seconds"],
-            "registers_per_thread": [int(r) for r in
-                                     re.findall(r"Used (\d+) registers", info["log"])],
-            "spills": any(int(a) or int(b) for a, b in spills)}
+            "registers_per_thread": [int(r) for *_, r in kernels],
+            "spill_bytes": [int(st) + int(ld) for _, _, st, ld, _ in kernels],
+            "stack_bytes": [int(sf) for _, sf, *_ in kernels]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "parallel_nvcc_seconds": _build.BUILD_INFO["seconds"],
           "sources": sources})
@@ -155,7 +189,9 @@ def phase_build():
 
 def _kernel_inputs(C, device, scene, gts):
     """Main-path operands: view 2 of the 480x640 synthetic scene against
-    its four neighbours, C candidate planes around the true depth."""
+    its four neighbours, C candidate planes around the true depth, and a
+    low-res prior (the truth within 2%, 30% holes), as the photometric
+    pyramid's finer levels have one."""
     import numpy as np
     import torch
 
@@ -166,10 +202,13 @@ def _kernel_inputs(C, device, scene, gts):
     ref = 2
     nbrs = [0, 1, 3, 4]
     cam = scene.images[ref].working_camera()
+    rp = np.random.default_rng(2)
+    prior = (gts[ref] * (1 + 0.02 * rp.standard_normal(gts[ref].shape))).astype(np.float32)
+    prior[rp.random(prior.shape) < 0.3] = 0.0
     data = densify._build_pm_data(
         scene.images[ref].gray, cam, [scene.images[j].gray for j in nbrs],
         [scene.images[j].working_camera() for j in nbrs], opts, 4.5, 7.5,
-        None, [gts[j] for j in nbrs], device=device)
+        prior, [gts[j] for j in nbrs], device=device)
     gt = torch.as_tensor(gts[ref], device=device)
     d = torch.where(gt > 0, gt, 6.0)
     rs = np.random.default_rng(0)
@@ -210,6 +249,123 @@ def _bound(C, H, W, T, img_px, dm_px, mode, geom):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _bound_views(C, H, W, T, V, img_px, dm_px, mode, geom):
+    """The multi-view scorer: bytes are the weights once, the V images and
+    26 constants a view, the candidate maps (depth, normal, inv_nd, bonus,
+    delta: 7 floats a (c, p)), X0, sum_w, norm_sq0, f_blend and d0 (7 a
+    pixel), and the output; fused adds the V depth maps and uv, precomputed
+    the (V, C, H, W) terms. Operations are V x K1's per view, less the
+    view-independent warp part counted once, plus finish_view per view and
+    K2's geometric term per view when fused."""
+    px = H * W
+    cp = C * px
+    nbytes = 4 * (V * (img_px + 26) + 3 * T + 2 * T * px + 7 * cp + 7 * px + cp)
+    flops = cp * (T * FLOP_SHARED + V * (T * (FLOP_TEXEL[mode] - FLOP_SHARED)
+                                         + FLOP_PIXEL + FLOP_FINISH))
+    if geom == "geom":
+        nbytes += 4 * (V * dm_px + 2 * px)
+        flops += cp * V * FLOP_GEOM
+    elif geom == "pre":
+        nbytes += 4 * V * cp
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _views_kernel_rows(card, scene, gts):
+    """The multi-view scorer at the main path's operands (view 2 against its
+    four neighbours, C=11 and C=1): each mode against score_views_plain on
+    the card to the bit (NaN included) and against the per-view route it
+    replaces (V launches of K1 or K2 plus the PyTorch epilogue), both timed
+    in this call."""
+    import torch
+
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+
+    dev = torch.device("cuda")
+    rows = {}
+    for C in (11, 1):
+        data, opts, depth, normal, _ = _kernel_inputs(C, dev, scene, gts)
+        v = data.views
+        V = v.image.shape[0]
+        H, W = depth.shape[1:]
+        T = data.goff.shape[0]
+        th = float(opts.th_robust)
+        wg = float(opts.estimation_geometric_weight)
+        state = patchmatch.PMState(depth=depth[C // 2], normal=normal[0],
+                                   conf=torch.zeros_like(depth[0]))
+        inv_nd, bonus, f_blend, delta = patchmatch.score_prelude(
+            data, opts, state, depth, normal)
+        args = (v.image, v.size, v.Hl, v.Hm, depth, normal, inv_nd, data.X0,
+                data.goff, data.w, data.wtm, data.sum_w, data.norm_sq0, bonus,
+                f_blend, delta, data.lowres)
+        per_view_args = (data.X0, data.goff, data.w, data.wtm, data.sum_w,
+                         data.norm_sq0)
+        # K3's terms, as the split sweep precomputes them
+        terms = torch.stack([pm_kernel.geom_term_plain(
+            v.depth[j], v.size[j], v.Tl[j], v.Tm[j], v.Tr[j], v.Tn[j], depth,
+            data.X0, data.uv) for j in range(V)]).contiguous()
+        geom_kw = {"none": {}, "pre": {"geom_terms": terms},
+                   "geom": {"Tr": v.Tr, "Tn": v.Tn, "dms": v.depth, "uv": data.uv}}
+        for name, mode, geom in VIEW_KERNELS:
+            nearest = mode == "nn"
+            kw = dict(th_robust=th, geom_weight=wg, nearest=nearest, **geom_kw[geom])
+
+            def kern():
+                return pm_kernel.score_views(*args, **kw)
+
+            def plain():
+                return pm_kernel.score_views_plain(*args, **kw)
+
+            def per_view(j, geom=geom, nearest=nearest):
+                if geom == "geom":
+                    return pm_kernel.score_view_geom(
+                        v.image[j], v.size[j], v.Hl[j], v.Hm[j], v.Tr[j], v.Tn[j],
+                        v.depth[j], depth, normal, inv_nd, data.X0, data.uv,
+                        *per_view_args[1:], th_robust=th, nearest=nearest)
+                s = pm_kernel.score_view(
+                    v.image[j], v.size[j], v.Hl[j], v.Hm[j], depth, normal,
+                    inv_nd, *per_view_args, th_robust=th, nearest=nearest)
+                return s, terms[j] if geom == "pre" else None
+
+            def old_route():
+                return pm_kernel.finish_views(
+                    per_view, V, v.size, bonus, f_blend, delta, data.lowres,
+                    th_robust=th, geom_weight=wg)
+
+            out_k = kern()
+            out_o = old_route()
+            torch.cuda.synchronize()
+            out_p = plain()
+            torch.cuda.synchronize()
+            both_nan = torch.isnan(out_k) & torch.isnan(out_p)
+            err = torch.where(both_nan, 0.0, (out_k - out_p).abs())
+            rec = {"phase": "kernels", "name": name, "C": C, "V": V, "H": H,
+                   "W": W, "T": T, "geom": geom,
+                   "max_abs_err": float(err.max()),
+                   "nan_share": float(torch.isnan(out_p).float().mean()),
+                   "blended_share": float((data.lowres > 0).float().mean())}
+            torch.testing.assert_close(out_k, out_p, rtol=0, atol=0, equal_nan=True)
+            torch.testing.assert_close(out_k, out_o, rtol=0, atol=0, equal_nan=True)
+            rec["equal_to_plain"] = rec["equal_to_per_view_route"] = True
+            rec["ms"] = cuda_ms(kern, 20, graph=True)
+            rec["eager_ms"] = cuda_ms(kern, 20)
+            rec["per_view_route_ms"] = cuda_ms(old_route, 20, graph=True)
+            rec["per_view_route_eager_ms"] = cuda_ms(old_route, 20)
+            rec["speedup_graph"] = rec["per_view_route_ms"] / rec["ms"]
+            rec["speedup_eager"] = rec["per_view_route_eager_ms"] / rec["eager_ms"]
+            rec["plain_ms"] = cuda_ms(plain, 3)
+            rec["library_ms"] = None
+            rec["library_note"] = ("no single PyTorch call computes a "
+                                   "plane-warped bilateral ZNCC over views")
+            rec["bound_ms"], rec["bound_by"] = _bound_views(
+                C, H, W, T, V, v.image[0].numel(), v.depth[0].numel(), mode, geom)
+            rec["card"] = card
+            emit(rec)
+            rows[(name, C)] = rec
+    return rows
+
+
 def phase_kernels(card, scene, gts):
     import numpy as np
     import torch
@@ -217,7 +373,7 @@ def phase_kernels(card, scene, gts):
     from openmvs_tpu_torch.ops import pm_kernel
 
     dev = torch.device("cuda")
-    rows = {}
+    rows = _views_kernel_rows(card, scene, gts)
     for C in (11, 1):
         data, opts, depth, normal, inv_nd = _kernel_inputs(C, dev, scene, gts)
         v = data.views
@@ -393,12 +549,13 @@ def _dmaps(folder, n):
 def _run_densify(scene, device="cuda", env=None):
     """dense_reconstruction(scene, DenseOptions()) on ``device`` with the
     launch counts set to 0 just before and read just after, and ``env``
-    set around it only: (cloud, depth maps, wall s, launches, stage s)."""
+    set around it only: (cloud, depth maps, wall s, launches, stage s,
+    calls of patchmatch.score_hypotheses)."""
     import torch
 
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import pm_kernel
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
 
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
@@ -406,6 +563,14 @@ def _run_densify(scene, device="cuda", env=None):
     logger = logging.getLogger("omvs_torch.densify")
     logger.addHandler(stage_log)
     os.environ.update(env)
+    score = patchmatch.score_hypotheses
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return score(*a, **kw)
+
+    patchmatch.score_hypotheses = counted
     try:
         with tempfile.TemporaryDirectory() as tmp:
             pm_kernel.reset_launches()
@@ -418,13 +583,23 @@ def _run_densify(scene, device="cuda", env=None):
             launches = dict(pm_kernel.LAUNCHES)
             maps = _dmaps(tmp, len(scene.images))
     finally:
+        patchmatch.score_hypotheses = score
         logger.removeHandler(stage_log)
         for k, old in saved.items():
             if old is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = old
-    return pc, maps, wall, launches, stage_log.stages
+    return pc, maps, wall, launches, stage_log.stages, calls[0]
+
+
+def _check_scoring(launches, calls):
+    """One multi-view scorer launch per score_hypotheses call, and no
+    per-view K1/K2 launch."""
+    views = sum(n for k, n in launches.items() if k.startswith("score_views_"))
+    if views != calls or any(launches[k] for k in PER_VIEW):
+        raise RuntimeError(f"{calls} score_hypotheses calls but launches {launches}: "
+                           "expected one multi-view launch each and no per-view K1/K2")
 
 
 def _agreement(maps_a, maps_b):
@@ -456,7 +631,7 @@ def phase_densify(card, scene, gts, t_scene):
 
     n = len(scene.images)
     opts = DenseOptions()
-    pc, maps, wall, launches, stages = _run_densify(scene)
+    pc, maps, wall, launches, stages, calls = _run_densify(scene)
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     n_maps = n * (1 + opts.estimation_geometric_iters)
@@ -470,63 +645,143 @@ def phase_densify(card, scene, gts, t_scene):
            "estimate_depth_maps_per_s": n_maps / est_s if est_s else None,
            "stages_s": stages,
            "scene_build_s": t_scene, "points": len(pc),
-           "launches": launches, "neighbors_per_view": n_nbrs,
+           "launches": launches, "score_hypotheses_calls": calls,
+           "neighbors_per_view": n_nbrs,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
            "jax_accuracy": JAX_ACCURACY, "jax_completeness": JAX_COMPLETENESS,
            "card": card}
     emit(rec)
     if any(launches[k] == 0 for k in MAIN_PATH):
         raise RuntimeError(f"a scorer kernel was not launched on the main path: {launches}")
-    # per depth map: K1 <= 12V per pyramid level, K2 = 3V per geometric pass
-    k1 = launches["score_view_exact"] + launches["score_view_nn"]
-    k2 = launches["score_view_geom_exact"] + launches["score_view_geom_nn"]
-    geo_expected = opts.estimation_geometric_iters * sum(3 * v for v in n_nbrs)
+    _check_scoring(launches, calls)
+    # per depth map: K1-mv <= 12 per pyramid level, K2-mv = 3 per geometric
+    # map (the incumbent and two parities)
+    k1 = launches["score_views_exact"] + launches["score_views_nn"]
+    k2 = launches["score_views_geom_exact"] + launches["score_views_geom_nn"]
+    geo_expected = opts.estimation_geometric_iters * 3 * n
     if k2 != geo_expected:
-        raise RuntimeError(f"K2 launches {k2} != {geo_expected}")
-    if k1 > (opts.sub_resolution_levels + 1) * sum(12 * v for v in n_nbrs):
-        raise RuntimeError(f"K1 launches {k1} above 12V per map and level")
+        raise RuntimeError(f"K2-mv launches {k2} != {geo_expected}")
+    if k1 > (opts.sub_resolution_levels + 1) * 12 * n:
+        raise RuntimeError(f"K1-mv launches {k1} above 12 per map and level")
     if len(pc) == 0:
         raise RuntimeError("empty dense cloud")
     _check_quality(q)
     return launches, maps
 
 
+def _union_us(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def phase_profile(card, scene):
+    """One view's photometric estimate_depth_map (view 0, 480x640, the
+    3-level pyramid) under torch.profiler with CUDA activity, after one
+    unprofiled run of the same call: device-busy share, the top 10 device
+    kernels by total time, launches, and host time per sweep outside the
+    kernels (the unprofiled wall less the device-busy time, over the sweeps
+    run). Reads the view selection phase densify made."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import patchmatch
+
+    opts = DenseOptions()
+    counts = {"half_steps": 0}
+    sweep_parity = patchmatch._sweep_parity
+
+    def counted(*a, **kw):
+        counts["half_steps"] += 1
+        return sweep_parity(*a, **kw)
+
+    def run():
+        t0 = time.perf_counter()
+        densify.estimate_depth_map(scene, 0, opts, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    patchmatch._sweep_parity = counted
+    try:
+        wall = run()
+        sweeps = counts["half_steps"] / 2
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = run()
+    finally:
+        patchmatch._sweep_parity = sweep_parity
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in dev_events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    copies = sum(cnt for name, (_, cnt) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    busy_s = _union_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_events]) / 1e6
+    rec = {"phase": "profile", "view": 0, "H": 480, "W": 640,
+           "wall_s": wall, "wall_profiled_s": wall_profiled, "sweeps": sweeps,
+           "profiler_device_events": len(dev_events),
+           "device_busy_s": busy_s,
+           "device_busy_share_of_profiled": busy_s / wall_profiled,
+           "device_busy_share": min(busy_s / wall, 1.0),
+           "kernel_launches": len(dev_events) - copies, "copies": copies,
+           "host_s_per_sweep_outside_kernels": (wall - busy_s) / sweeps,
+           "top10_kernels": [{"name": name[:160], "total_ms": tot / 1e3,
+                              "count": cnt, "share_of_busy": tot / 1e6 / busy_s}
+                             for name, (tot, cnt) in top] if busy_s else [],
+           "card": card}
+    emit(rec)
+    return rec
+
+
 def phase_geom_split(card, scene, gts, default_maps, default_launches):
     """The densify path with geometric sweeps split (OMVS_GEOM_SPLIT=1):
-    per geometric map K2 scores the incumbent once per neighbour view
-    (init), and per parity K3 runs once per view, then K1."""
+    per geometric map K2-mv scores the incumbent once (init), and per
+    parity K3 runs once per neighbour view, then the scorer once with the
+    terms precomputed."""
     from openmvs_tpu_torch.config import DenseOptions
     from openmvs_tpu_torch.synthetic import depth_quality
 
     n = len(scene.images)
     opts = DenseOptions()
-    pc, maps, wall, launches, stages = _run_densify(
+    pc, maps, wall, launches, stages, calls = _run_densify(
         scene, env={"OMVS_GEOM_SPLIT": "1"})
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     geo = opts.estimation_geometric_iters
     n_maps = n * (1 + geo)
-    k2 = launches["score_view_geom_exact"] + launches["score_view_geom_nn"]
-    k3 = launches["geom_term"]
     expected = {"geom_term": geo * sum(2 * v for v in n_nbrs),
-                "score_view_geom": geo * sum(n_nbrs),
-                "score_view_exact": default_launches["score_view_exact"]
-                + geo * sum(2 * v for v in n_nbrs)}
+                "score_views_geom_exact": geo * n,
+                "score_views_pre_exact": geo * 2 * n,
+                "score_views_exact": default_launches["score_views_exact"],
+                "score_views_nn": default_launches["score_views_nn"]}
     est_s = sum(v for k, v in stages.items()
                 if k.startswith(("photometric pass", "geometric pass")))
     rec = {"phase": "geom_split", "views": n, "H": 480, "W": 640,
            "depth_maps": n_maps, "wall_s": wall, "depth_maps_per_s": n_maps / wall,
            "estimate_s": est_s, "stages_s": stages, "points": len(pc),
            "launches": launches, "expected_launches": expected,
+           "score_hypotheses_calls": calls,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
            "mask_agreement_with_densify": mask_agree,
            "depth_agreement_with_densify": depth_agree,
            "bit_identical_with_densify": identical, "card": card}
     emit(rec)
-    if (k3, k2, launches["score_view_exact"]) != (
-            expected["geom_term"], expected["score_view_geom"],
-            expected["score_view_exact"]):
+    _check_scoring(launches, calls)
+    if any(launches[k] != want for k, want in expected.items()):
         raise RuntimeError(f"split launches {launches}, expected {expected}")
     if min(mask_agree) < 0.999 or min(depth_agree) < 0.999:
         raise RuntimeError("split and default depth maps disagree")
@@ -541,7 +796,7 @@ def phase_parity(card):
     out = {}
     for dev in ("cuda", "cpu"):
         scene, _, _ = build_gt_scene(n_views=n, W=160, H=120)
-        pc, maps, wall, _, _ = _run_densify(scene, dev)
+        pc, maps, wall, _, _, _ = _run_densify(scene, dev)
         out[dev] = (len(pc), maps, wall)
     mask_agree, depth_agree, identical = _agreement(out["cuda"][1], out["cpu"][1])
     pts = (out["cuda"][0], out["cpu"][0])
@@ -560,27 +815,35 @@ def phase_parity(card):
 
 def phase_geom_unfused(card, default_maps):
     """The 120x160 scene on the card with geometric scoring unfused
-    (OMVS_GEOM_FUSED=0: K1, then K3 per view, in place of K2), against the
-    default run of phase parity."""
+    (OMVS_GEOM_FUSED=0: K3 per view, then the scorer with the terms
+    precomputed, in place of K2-mv), against the default run of phase
+    parity."""
     from openmvs_tpu_torch.config import DenseOptions
     from openmvs_tpu_torch.synthetic import build_gt_scene
 
     scene, _, _ = build_gt_scene(n_views=5, W=160, H=120)
-    pc, maps, wall, launches, _ = _run_densify(scene, env={"OMVS_GEOM_FUSED": "0"})
+    pc, maps, wall, launches, _, calls = _run_densify(
+        scene, env={"OMVS_GEOM_FUSED": "0"})
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     # per geometric map: the incumbent (C=1) and two parities, V views each
-    k3_expected = DenseOptions().estimation_geometric_iters * sum(3 * v for v in n_nbrs)
-    k2 = launches["score_view_geom_exact"] + launches["score_view_geom_nn"]
+    geo = DenseOptions().estimation_geometric_iters
+    k3_expected = geo * sum(3 * v for v in n_nbrs)
+    pre_expected = geo * 3 * len(n_nbrs)
+    k2 = launches["score_views_geom_exact"] + launches["score_views_geom_nn"]
     rec = {"phase": "geom_unfused", "H": 120, "W": 160, "points": len(pc),
            "wall_s": wall, "launches": launches, "geom_term_expected": k3_expected,
+           "score_views_pre_expected": pre_expected,
+           "score_hypotheses_calls": calls,
            "mask_agreement_with_default": mask_agree,
            "depth_agreement_with_default": depth_agree,
            "bit_identical_with_default": identical, "card": card}
     emit(rec)
-    if launches["geom_term"] != k3_expected or k2 != 0:
+    _check_scoring(launches, calls)
+    if (launches["geom_term"] != k3_expected or k2 != 0
+            or launches["score_views_pre_exact"] != pre_expected):
         raise RuntimeError(f"unfused launches {launches}: expected {k3_expected} "
-                           "K3 and no K2")
+                           f"K3, {pre_expected} precomputed-mode and no K2-mv")
     if min(mask_agree) < 0.999 or min(depth_agree) < 0.999:
         raise RuntimeError("unfused and default depth maps disagree")
 
@@ -605,6 +868,7 @@ def main():
     rows = phase_kernels(card, scene, gts)
     launches = {"variants": phase_variants(card)}
     launches["densify"], maps = phase_densify(card, scene, gts, t_scene)
+    phase_profile(card, scene)
     launches["geom_split"] = phase_geom_split(card, scene, gts, maps,
                                               launches["densify"])
     phase_geom_unfused(card, phase_parity(card))

@@ -28,6 +28,7 @@ BUILD_DIR = _PKG / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_TEXELS = 128
+MAX_VIEWS = 12  # DenseOptions.max_views: the multi-view scorer's limit
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every exported function, by library (source stem)
@@ -54,6 +55,22 @@ SIGNATURES = {
         ],
         "pm_max_texels": [],
         "pm_error_string": [I],
+    },
+    "pm_score_views": {
+        "pm_score_views_launch": [
+            P, I, I,            # img (V, Hp, Wp), Hp, Wp
+            P, P, P, P, P,      # size, Hl, Hm, Tr, Tn (stacked over V)
+            P, I, I, P,         # dm (V, Hd, Wd), Hd, Wd, gterm (V, C, H, W)
+            P, P, P, P, P,      # depth, normal, inv_nd, bonus, delta
+            P, P, P, P,         # X0, uv, f_blend, d0
+            P, I, P, P,         # goff, T, w, wtm
+            P, P,               # sum_w, norm_sq0
+            P,                  # out
+            I, I, I, I,         # V, C, H, W
+            F, F, I, I,         # th_robust, geom_weight, nearest, geom
+            P,                  # stream
+        ],
+        "pm_views_max_views": [],
     },
     "pm_score_v2": {
         "pm_score_view_v2": [
@@ -145,6 +162,8 @@ def library(name: str = "pm_score") -> ctypes.CDLL:
         f.restype = RESTYPES.get(fn, I)
     if name == "pm_score" and lib.pm_max_texels() != MAX_TEXELS:
         raise RuntimeError("pm_score library and wrapper disagree on MAX_TEXELS")
+    if name == "pm_score_views" and lib.pm_views_max_views() != MAX_VIEWS:
+        raise RuntimeError("pm_score_views library and wrapper disagree on MAX_VIEWS")
     _libs[name] = lib
     return lib
 

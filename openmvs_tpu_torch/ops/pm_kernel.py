@@ -1,5 +1,12 @@
-"""The PatchMatch kernels K1, K2, K3 and K1-v2: wrappers, plain versions and
-launch counts.
+"""The PatchMatch kernels K1-mv, K2-mv, K1, K2, K3 and K1-v2: wrappers,
+plain versions and launch counts.
+
+K1-mv and K2-mv, ``score_views``, are K1 and K2 redesigned for the card:
+one launch scores C candidate planes against all neighbour views and
+returns the aggregate of ``score_hypotheses`` (the per-view epilogue
+``finish_views`` and the min-mean of the best two views), reading each
+pixel's patch weights once (``csrc/pm_score_views.cu``). The sweep scores
+through it; K1 and K2 stay as the per-view design it replaced.
 
 K1, ``score_view``, replaces ``_score_view_pallas``
 (``openmvs_tpu/ops/pm_kernel.py:819``): the bilaterally weighted ZNCC of C
@@ -24,12 +31,14 @@ never its value.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; each launch adds one to its entry of
-``LAUNCHES`` (one per kernel and sampling mode).
+``LAUNCHES`` (one per kernel and sampling mode, and for ``score_views`` per
+geometric mode: none, ``geom`` fused, ``pre`` precomputed).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -37,9 +46,14 @@ import torch
 from openmvs_tpu_torch.ops import _build
 from openmvs_tpu_torch.utils.fmath import fma, rsqrt
 
-LAUNCHES = {"score_view_exact": 0, "score_view_nn": 0,
+LAUNCHES = {"score_views_exact": 0, "score_views_nn": 0,
+            "score_views_geom_exact": 0, "score_views_geom_nn": 0,
+            "score_views_pre_exact": 0, "score_views_pre_nn": 0,
+            "score_view_exact": 0, "score_view_nn": 0,
             "score_view_geom_exact": 0, "score_view_geom_nn": 0,
             "geom_term": 0, "score_view_v2_exact": 0, "score_view_v2_nn": 0}
+# score_views' geometric modes, as the kernel numbers them
+_GEOM_MODES = {"none": 0, "geom": 1, "pre": 2}
 
 
 def reset_launches() -> None:
@@ -171,6 +185,55 @@ def geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
     return torch.where(similar & zbok, cons, 4.0)
 
 
+def finish_views(per_view, n_views, sizes, bonus, f_blend, delta, d0, *,
+                 th_robust: float, geom_weight: float) -> torch.Tensor:
+    """(C, H, W) aggregate of per-view scores: ``per_view(j)`` gives view
+    j's (score, geometric term or None), each (C, H, W); each view is
+    finished as the JAX package's ``finish_view`` (patchmatch.py:562-580:
+    bonus and geometric weight, low-res prior blend, clip at 2, 2 for a
+    padded slot) and folded into the best two in view order, then averaged
+    min-mean (DepthMap.cpp:594-609)."""
+    s0 = s1 = torch.full(bonus.shape, math.inf, dtype=torch.float32,
+                         device=bonus.device)
+    for j in range(n_views):
+        s, gj = per_view(j)
+        if gj is not None:
+            s = fma(s, bonus, geom_weight * gj)
+        else:
+            s = s * bonus
+        # low-res prior blend (DepthMap.cpp:552-561)
+        s_blend = fma((1.0 - f_blend)[None], s, f_blend[None] * delta)
+        s = torch.where(d0[None] > 0, s_blend, s)
+        s = torch.clamp(s, max=2.0)
+        # a padded neighbor slot (size (0, 0)) pins to the 2.0 clip
+        s = torch.where(sizes[j][0] > 0, s, 2.0)
+        s0, s1 = torch.minimum(s0, s), torch.minimum(s1, torch.maximum(s0, s))
+    if n_views == 1:
+        return s0
+    # min-mean: average the best two unless the 2nd is already robust-clipped
+    return torch.where(s1 < th_robust, 0.5 * (s0 + s1), s0)
+
+
+def score_views_plain(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff,
+                      w, wtm, sum_w, norm_sq0, bonus, f_blend, delta, d0, *,
+                      th_robust: float, geom_weight: float,
+                      nearest: bool = False, Tr=None, Tn=None, dms=None,
+                      uv=None, geom_terms=None) -> torch.Tensor:
+    """The plain version of ``score_views``: per view, K1's and K2's plain
+    versions (or the precomputed term), then ``finish_views``."""
+    def per_view(j):
+        s = score_view_plain(images[j], sizes[j], Hl[j], Hm[j], depth, normal,
+                             inv_nd, X0, goff, w, wtm, sum_w, norm_sq0,
+                             th_robust=th_robust, nearest=nearest)[0]
+        if dms is not None:
+            return s, geom_term_plain(dms[j], sizes[j], Hl[j], Hm[j], Tr[j],
+                                      Tn[j], depth, X0, uv)
+        return s, None if geom_terms is None else geom_terms[j]
+
+    return finish_views(per_view, images.shape[0], sizes, bonus, f_blend,
+                        delta, d0, th_robust=th_robust, geom_weight=geom_weight)
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -238,6 +301,50 @@ def check_geom_operands(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> None:
                depth=(depth, (C, H, W)), X0=(X0, (H, W, 3)), uv=(uv, (H, W, 2)))
     for name, (t, shape) in ops.items():
         _check(name, t, shape, dev)
+
+
+def check_views_operands(images, sizes, Hl, Hm, depth, normal, inv_nd, X0,
+                        goff, w, wtm, sum_w, norm_sq0, bonus, f_blend, delta,
+                        d0, Tr=None, Tn=None, dms=None, uv=None,
+                        geom_terms=None) -> str:
+    """Raise unless the operands are what ``score_views`` takes: contiguous
+    float32 tensors on depth's device, stacks of 1 to ``MAX_VIEWS`` views,
+    and either the fused geometric operands (Tr, Tn, dms, uv), or the
+    precomputed terms, or neither. Returns the geometric mode."""
+    dev = depth.device
+    C, H, W = _candidate_shape(depth)
+    if images.dim() != 3:
+        raise ValueError(f"images: {images.dim()}-D, expected (V, Hp, Wp)")
+    V = images.shape[0]
+    if not 1 <= V <= _build.MAX_VIEWS:
+        raise ValueError(f"images: {V} views, expected 1 to {_build.MAX_VIEWS}")
+    if goff.dim() != 2 or not 1 <= goff.shape[0] <= _build.MAX_TEXELS:
+        raise ValueError(f"goff: shape {tuple(goff.shape)}, expected (T, 3) "
+                         f"with 1 <= T <= {_build.MAX_TEXELS}")
+    T = goff.shape[0]
+    ops = dict(images=(images, images.shape), sizes=(sizes, (V, 2)),
+               Hl=(Hl, (V, 3, 3)), Hm=(Hm, (V, 3)), depth=(depth, (C, H, W)),
+               normal=(normal, (C, H, W, 3)), inv_nd=(inv_nd, (C, H, W)),
+               X0=(X0, (H, W, 3)), goff=(goff, (T, 3)), w=(w, (T, H, W)),
+               wtm=(wtm, (T, H, W)), sum_w=(sum_w, (H, W)),
+               norm_sq0=(norm_sq0, (H, W)), bonus=(bonus, (C, H, W)),
+               f_blend=(f_blend, (H, W)), delta=(delta, (C, H, W)), d0=(d0, (H, W)))
+    fused = [a is not None for a in (Tr, Tn, dms, uv)]
+    if any(fused) and not all(fused):
+        raise ValueError("fused geometric term: give all of Tr, Tn, dms, uv")
+    if all(fused) and geom_terms is not None:
+        raise ValueError("give the fused geometric operands or geom_terms, not both")
+    mode = "geom" if all(fused) else "pre" if geom_terms is not None else "none"
+    if mode == "geom":
+        if dms.dim() != 3:
+            raise ValueError(f"dms: {dms.dim()}-D, expected (V, Hd, Wd)")
+        ops.update(Tr=(Tr, (V, 3, 3)), Tn=(Tn, (V, 3)),
+                   dms=(dms, (V,) + tuple(dms.shape[1:])), uv=(uv, (H, W, 2)))
+    elif mode == "pre":
+        ops.update(geom_terms=(geom_terms, (V, C, H, W)))
+    for name, (t, shape) in ops.items():
+        _check(name, t, shape, dev)
+    return mode
 
 
 def _cuda_device(depth: torch.Tensor) -> torch.device:
@@ -374,3 +481,53 @@ def score_view_v2(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
     _raise_on(rc, "pm_score_view_v2")
     LAUNCHES["score_view_v2_nn" if nearest else "score_view_v2_exact"] += 1
     return score
+
+
+def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
+                sum_w, norm_sq0, bonus, f_blend, delta, d0, *, th_robust: float,
+                geom_weight: float, nearest: bool = False, Tr=None, Tn=None,
+                dms=None, uv=None, geom_terms=None) -> torch.Tensor:
+    """(C, H, W) scores of C candidate (depth, normal) maps aggregated over
+    the V views of the stacks (K1-mv; K2-mv with the fused geometric term):
+    what ``score_hypotheses`` returns, from one launch.
+
+    ``images`` (V, Hp, Wp), ``sizes`` (V, 2), ``Hl`` (V, 3, 3) and ``Hm``
+    (V, 3) are the neighbour views; ``bonus`` and ``delta`` (C, H, W) and
+    ``f_blend`` and ``d0`` (H, W) the smoothness bonus and the low-res
+    prior blend; the rest as for K1. The geometric term of view j is
+    computed in the kernel when ``Tr`` (V, 3, 3), ``Tn`` (V, 3), ``dms``
+    (V, Hd, Wd) and ``uv`` are given (with ``Hl``/``Hm`` as its forward
+    transform, as K2), read from ``geom_terms`` (V, C, H, W) when that is
+    given, and left out otherwise."""
+    args = (images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
+            sum_w, norm_sq0, bonus, f_blend, delta, d0)
+    geom = dict(Tr=Tr, Tn=Tn, dms=dms, uv=uv, geom_terms=geom_terms)
+    mode = check_views_operands(*args, **geom)
+    if depth.device.type == "cpu":
+        return score_views_plain(*args, th_robust=th_robust,
+                                 geom_weight=geom_weight, nearest=nearest, **geom)
+    dev = _cuda_device(depth)
+    C, H, W = depth.shape
+    V, Hp, Wp = images.shape
+    out = torch.empty_like(depth)
+    lib = _build.library("pm_score_views")
+    null = ctypes.c_void_p(0)
+
+    def ptr(t):
+        return null if t is None else _ptr(t)
+
+    with torch.cuda.device(dev):
+        rc = lib.pm_score_views_launch(
+            _ptr(images), Hp, Wp, _ptr(sizes), _ptr(Hl), _ptr(Hm), ptr(Tr),
+            ptr(Tn), ptr(dms), dms.shape[1] if dms is not None else 0,
+            dms.shape[2] if dms is not None else 0, ptr(geom_terms),
+            _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(bonus), _ptr(delta),
+            _ptr(X0), ptr(uv), _ptr(f_blend), _ptr(d0), _ptr(goff),
+            goff.shape[0], _ptr(w), _ptr(wtm), _ptr(sum_w), _ptr(norm_sq0),
+            _ptr(out), V, C, H, W, ctypes.c_float(th_robust),
+            ctypes.c_float(geom_weight), int(nearest), _GEOM_MODES[mode],
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "pm_score_views_launch")
+    infix = "" if mode == "none" else f"_{mode}"
+    LAUNCHES[f"score_views{infix}_{'nn' if nearest else 'exact'}"] += 1
+    return out

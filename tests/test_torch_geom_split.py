@@ -1,8 +1,9 @@
 """The port's split and unfused geometric sweeps.
 
 ``OMVS_GEOM_SPLIT`` (``1`` or ``xla``) splits a geometric sweep into
-candidates, the geometric terms of all views (K3), and scoring with K1 plus
-selection; ``OMVS_GEOM_FUSED=0`` scores with K1 and K3 instead of K2. On a
+candidates, the geometric terms of all views (K3), and scoring with the
+terms precomputed plus selection; ``OMVS_GEOM_FUSED=0`` computes the terms
+with K3 in place of the scorer's fused term (K2-mv). On a
 96x128 example with two neighbour views and neighbour depth maps with
 holes (``make_case(geom=True)``):
 
@@ -130,25 +131,36 @@ def test_score_hypotheses_with_geom_terms_matches_jax(case):
 
 
 def _counting(monkeypatch):
-    """Count calls of the three kernel wrappers, by name and candidate count."""
+    """Count calls of the kernel wrappers, by name and candidate count: the
+    multi-view scorer by its geometric mode (``score_views`` with no term,
+    ``score_views_geom`` fused, ``score_views_pre`` precomputed), and K3."""
     calls = {}
-    # position of the candidate depths in each wrapper's arguments
-    for name, at in (("score_view", 4), ("score_view_geom", 7), ("geom_term", 6)):
-        fn = getattr(pm_kernel, name)
 
-        def counted(*a, _fn=fn, _name=name, _at=at, **kw):
-            key = (_name, a[_at].shape[0])
-            calls[key] = calls.get(key, 0) + 1
-            return _fn(*a, **kw)
+    def count(key):
+        calls[key] = calls.get(key, 0) + 1
 
-        monkeypatch.setattr(pm_kernel, name, counted)
+    views, geom_term = pm_kernel.score_views, pm_kernel.geom_term
+
+    def counted_views(*a, **kw):
+        mode = ("_geom" if kw.get("dms") is not None else
+                "_pre" if kw.get("geom_terms") is not None else "")
+        count((f"score_views{mode}", a[4].shape[0]))
+        return views(*a, **kw)
+
+    def counted_geom_term(*a, **kw):
+        count(("geom_term", a[6].shape[0]))
+        return geom_term(*a, **kw)
+
+    monkeypatch.setattr(pm_kernel, "score_views", counted_views)
+    monkeypatch.setattr(pm_kernel, "geom_term", counted_geom_term)
     return calls
 
 
 def test_geometric_map_routes_under_split(case, monkeypatch):
     """A geometric map's estimation (init_state, then one exact sweep of
-    C=11 candidates) under OMVS_GEOM_SPLIT=1 scores the incumbent with K2
-    once per view, then per parity runs K3 and K1 once per view."""
+    C=11 candidates) under OMVS_GEOM_SPLIT=1 scores the incumbent with the
+    fused multi-view scorer (K2-mv) once, then per parity runs K3 once per
+    view and the scorer once with the terms precomputed."""
     data, st, _, po, key = case
     pd = port_data(data)
     calls = _counting(monkeypatch)
@@ -157,8 +169,8 @@ def test_geometric_map_routes_under_split(case, monkeypatch):
                            mode="exact")
     tpm.sweep(state, pd, po, _key(key), V, True, n_perturb=3, mode="exact",
               n_prop=8, fold=1)
-    assert calls == {("score_view_geom", 1): V, ("geom_term", 11): 2 * V,
-                     ("score_view", 11): 2 * V}
+    assert calls == {("score_views_geom", 1): 1, ("geom_term", 11): 2 * V,
+                     ("score_views_pre", 11): 2}
 
 
 def _maps(folder, n):
@@ -181,7 +193,7 @@ def test_dense_reconstruction_split_equals_default(tmp_path, monkeypatch):
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     geo = opts.estimation_geometric_iters
     k3 = sum(n for (name, _), n in calls.items() if name == "geom_term")
-    k2 = sum(n for (name, _), n in calls.items() if name == "score_view_geom")
-    assert (k3, k2) == (geo * sum(2 * v for v in n_nbrs), geo * sum(n_nbrs))
+    k2 = sum(n for (name, _), n in calls.items() if name == "score_views_geom")
+    assert (k3, k2) == (geo * sum(2 * v for v in n_nbrs), geo * len(n_nbrs))
     for a, b in zip(_maps(tmp_path / "default", 3), _maps(tmp_path / "split", 3)):
         np.testing.assert_array_equal(a, b)
