@@ -8,16 +8,20 @@ Phases, each printing one JSON line:
   2. build      - builds the CUDA kernels from csrc/ (one nvcc per source,
                   all started together; sm_90a)
   3. kernels    - the multi-view scorer K1-mv (exact, nn), K2-mv (exact) and
-                  its precomputed-term mode (exact), and the per-view K1
-                  (exact, nn), K2, K3 and K1-v2 (exact, nn), at the main
-                  path's shapes (C=11 and C=1) against their plain PyTorch
-                  versions on the card, with timings; the multi-view rows
-                  bit for bit (NaN included), and against the per-view route
-                  they replace (V launches of K1 or K2 plus the PyTorch
-                  epilogue), timed in the same call; K1-v2 against K1
+                  its precomputed-term mode (exact), the multi-view
+                  geometric kernel K3-mv, and the per-view K1 (exact, nn),
+                  K2, K3 and K1-v2 (exact, nn), at the main path's shapes
+                  (C=11 and C=1) against their plain PyTorch versions on the
+                  card, with timings; the multi-view rows bit for bit (NaN
+                  included), and against the per-view route they replace (V
+                  launches of K1, K2 or K3 plus the PyTorch epilogue or
+                  stack), timed in the same call; K1-v2 against K1
   4. variants   - K1 against K1-v2 on the dev script's inputs (C=11,
                   480x640, T=25): times, and the share of (candidate, pixel)s
-                  whose texels all came from K1-v2's staged window
+                  whose texels all came from K1-v2's staged window; then
+                  the same with candidate depths spread wide enough that
+                  in-bounds footprints leave the window (K1-v2's re-read
+                  from the image), held to K1 bit for bit
   5. densify    - the synthetic 5-view 480x640 scene through
                   densify.dense_reconstruction(scene, DenseOptions()) on the
                   card: throughput, point count, kernel launches (one
@@ -29,14 +33,14 @@ Phases, each printing one JSON line:
                   estimate_depth_map at 480x640: device-busy share, the top
                   10 device kernels by time, launches, host time per sweep
   7. geom_split - the same under OMVS_GEOM_SPLIT=1 (geometric sweeps split
-                  into candidates, K3, then the scorer with the terms
+                  into candidates, K3-mv, then the scorer with the terms
                   precomputed, and selection): launches, quality, and
                   agreement with phase densify's maps
   8. parity     - the same scene at 120x160 on the card against the port's
                   plain versions on the CPU
   9. geom_unfused - the 120x160 scene on the card under OMVS_GEOM_FUSED=0
-                  (K3, then the precomputed mode, in place of K2-mv) against
-                  phase parity's card maps
+                  (K3-mv, then the precomputed mode, in place of K2-mv)
+                  against phase parity's card maps
 Each of phases 4, 5, 7 and 9 sets the launch counts to 0 just before the
 path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
@@ -108,6 +112,7 @@ KERNEL_LINE = (
     ("score_view_nn", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
     ("score_view_geom_exact", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:979", "densify"),
     ("geom_term", "pm_score.cu", "openmvs_tpu/ops/pm_kernel.py:691", "geom_split"),
+    ("geom_terms", "pm_geom_views.cu", "openmvs_tpu/ops/pm_kernel.py:691", "geom_split"),
     ("score_view_v2_exact", "pm_score_v2.cu", "scripts/dev_kernel_variants.py:282", "variants"),
     ("score_view_v2_nn", "pm_score_v2.cu", "scripts/dev_kernel_variants.py:282", "variants"),
 )
@@ -181,10 +186,43 @@ def phase_build():
             "nvcc_seconds": info["seconds"],
             "registers_per_thread": [int(r) for *_, r in kernels],
             "spill_bytes": [int(st) + int(ld) for _, _, st, ld, _ in kernels],
-            "stack_bytes": [int(sf) for _, sf, *_ in kernels]}
+            "stack_bytes": [int(sf) for _, sf, *_ in kernels],
+            "sass": _sass_loops(os.path.join(_build.BUILD_INFO["dir"],
+                                             name.replace(".cu", ".so")))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "parallel_nvcc_seconds": _build.BUILD_INFO["seconds"],
           "sources": sources})
+
+
+def _sass_loops(lib):
+    """Per kernel of the library ``lib`` (by its name and template
+    arguments, as mangled): the SASS instruction count and the lengths of
+    its loops of 32 instructions or more (each backward branch's span, in
+    instructions), from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    funcs, code = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : \S*?\d+(pm_[a-z0-9_]+(?:I[A-Za-z0-9]+?E)?)", line)
+        if m:
+            code = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and code is not None:
+            code.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, code in funcs.items():
+        loops = set()
+        for addr, text in code:
+            b = re.search(r"\bBRA(?:\.\S+)? (0x[0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < addr:
+                n = (addr - int(b.group(1), 16)) // 16 + 1
+                if n >= 32:
+                    loops.add(n)
+        out[name] = {"instructions": len(code), "loops": sorted(loops)}
+    return out
 
 
 def _kernel_inputs(C, device, scene, gts):
@@ -234,6 +272,29 @@ def _bound_geom(C, H, W, dm_px):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = cp * FLOP_GEOM / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound_geom_views(C, H, W, V, dm_px):
+    """K3-mv: the raw depths in and the (V, C, H, W) terms out, X0, uv, the
+    V neighbour depth maps and 26 constants a view once each; FLOP_GEOM
+    operations per (view, c, p)."""
+    px = H * W
+    cp = C * px
+    nbytes = 4 * (V * (dm_px + 26) + cp + 3 * px + 2 * px + V * cp)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = V * cp * FLOP_GEOM / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _raw_depths(depth):
+    """Raw candidate depths as the geometric kernels take them: ``depth``
+    with 5% zeros, the invalid hypotheses."""
+    import numpy as np
+    import torch
+
+    holes = torch.as_tensor(np.random.default_rng(1).random(depth.shape) < 0.05,
+                            device=depth.device)
+    return torch.where(holes, 0.0, depth).contiguous()
 
 
 def _bound(C, H, W, T, img_px, dm_px, mode, geom):
@@ -301,10 +362,9 @@ def _views_kernel_rows(card, scene, gts):
                 f_blend, delta, data.lowres)
         per_view_args = (data.X0, data.goff, data.w, data.wtm, data.sum_w,
                          data.norm_sq0)
-        # K3's terms, as the split sweep precomputes them
-        terms = torch.stack([pm_kernel.geom_term_plain(
-            v.depth[j], v.size[j], v.Tl[j], v.Tm[j], v.Tr[j], v.Tn[j], depth,
-            data.X0, data.uv) for j in range(V)]).contiguous()
+        # K3-mv's terms, as the split sweep precomputes them
+        terms = pm_kernel.geom_terms_plain(v.depth, v.size, v.Tl, v.Tm, v.Tr,
+                                           v.Tn, depth, data.X0, data.uv)
         geom_kw = {"none": {}, "pre": {"geom_terms": terms},
                    "geom": {"Tr": v.Tr, "Tn": v.Tn, "dms": v.depth, "uv": data.uv}}
         for name, mode, geom in VIEW_KERNELS:
@@ -366,14 +426,75 @@ def _views_kernel_rows(card, scene, gts):
     return rows
 
 
+def _geom_views_kernel_rows(card, scene, gts):
+    """K3-mv at the split sweep's operands (view 2's raw candidate depths
+    against its four neighbours, C=11 and C=1): against geom_terms_plain on
+    the card to the bit (NaN included) and against the per-view route it
+    replaces (V launches of K3 and torch.stack), both timed in this call."""
+    import torch
+
+    from openmvs_tpu_torch.ops import pm_kernel
+
+    dev = torch.device("cuda")
+    rows = {}
+    for C in (11, 1):
+        data, _, depth, _, _ = _kernel_inputs(C, dev, scene, gts)
+        v = data.views
+        V = v.depth.shape[0]
+        H, W = depth.shape[1:]
+        args = (v.depth, v.size, v.Tl, v.Tm, v.Tr, v.Tn, _raw_depths(depth),
+                data.X0, data.uv)
+
+        def kern():
+            return pm_kernel.geom_terms(*args)
+
+        def plain():
+            return pm_kernel.geom_terms_plain(*args)
+
+        def old_route():
+            return torch.stack([pm_kernel.geom_term(*(a[j] for a in args[:6]), *args[6:])
+                                for j in range(V)])
+
+        out_k = kern()
+        out_o = old_route()
+        torch.cuda.synchronize()
+        out_p = plain()
+        torch.cuda.synchronize()
+        both_nan = torch.isnan(out_k) & torch.isnan(out_p)
+        rec = {"phase": "kernels", "name": "geom_terms", "C": C, "V": V, "H": H,
+               "W": W, "max_abs_err": float(torch.where(both_nan, 0.0,
+                                                        (out_k - out_p).abs()).max()),
+               "consistent_share": float((out_p < 4.0).float().mean())}
+        torch.testing.assert_close(out_k, out_p, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(out_k, out_o, rtol=0, atol=0, equal_nan=True)
+        rec["equal_to_plain"] = rec["equal_to_per_view_route"] = True
+        rec["ms"] = cuda_ms(kern, 20, graph=True)
+        rec["eager_ms"] = cuda_ms(kern, 20)
+        rec["per_view_route_ms"] = cuda_ms(old_route, 20, graph=True)
+        rec["per_view_route_eager_ms"] = cuda_ms(old_route, 20)
+        rec["speedup_graph"] = rec["per_view_route_ms"] / rec["ms"]
+        rec["speedup_eager"] = rec["per_view_route_eager_ms"] / rec["eager_ms"]
+        rec["plain_ms"] = cuda_ms(plain, 3)
+        rec["library_ms"] = None
+        rec["library_note"] = ("no single PyTorch call computes a forward-backward "
+                               "reprojection penalty")
+        rec["bound_ms"], rec["bound_by"] = _bound_geom_views(
+            C, H, W, V, v.depth[0].numel())
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["card"] = card
+        emit(rec)
+        rows[("geom_terms", C)] = rec
+    return rows
+
+
 def phase_kernels(card, scene, gts):
-    import numpy as np
     import torch
 
     from openmvs_tpu_torch.ops import pm_kernel
 
     dev = torch.device("cuda")
     rows = _views_kernel_rows(card, scene, gts)
+    rows.update(_geom_views_kernel_rows(card, scene, gts))
     for C in (11, 1):
         data, opts, depth, normal, inv_nd = _kernel_inputs(C, dev, scene, gts)
         v = data.views
@@ -384,12 +505,8 @@ def phase_kernels(card, scene, gts):
         common = (data.X0, data.goff, data.w, data.wtm, data.sum_w, data.norm_sq0)
         scorer = (v.image[j], v.size[j], v.Hl[j], v.Hm[j], depth, normal, inv_nd,
                   *common)
-        # K3 takes raw candidate depths: 5% zeros, the invalid hypotheses
-        holes = torch.as_tensor(np.random.default_rng(1).random(depth.shape) < 0.05,
-                                device=dev)
-        raw = torch.where(holes, 0.0, depth).contiguous()
-        geom = (v.depth[j], v.size[j], v.Tl[j], v.Tm[j], v.Tr[j], v.Tn[j], raw,
-                data.X0, data.uv)
+        geom = (v.depth[j], v.size[j], v.Tl[j], v.Tm[j], v.Tr[j], v.Tn[j],
+                _raw_depths(depth), data.X0, data.uv)
         for name, mode, kind in KERNELS:
             nearest = mode == "nn"
             if kind == "k2":
@@ -489,15 +606,41 @@ def _window_shares(in_win, scorer, th, nearest):
 def phase_variants(card):
     """K1 against K1-v2 on the dev script's inputs (the comparison of the
     JAX package's scripts/dev_kernel_variants.py main), timed in turns
-    K1, K1-v2, K1-v2, K1."""
-    import torch
+    K1, K1-v2, K1-v2, K1. Then the same where K1-v2's window cannot hold
+    every footprint: the candidate depths spread from [3, 3.5] to [1, 4],
+    so the disparities within a tile span 32-128 pixels, wider than the
+    64-column window, and K1-v2 re-reads the in-bounds (candidate, pixel)s
+    that miss it from the image. Only the first run's launches count."""
+    import numpy as np
 
     from openmvs_tpu_torch.ops import kernel_variants, pm_kernel
 
     ins = kernel_variants.make_inputs()
-    args = kernel_variants.as_args(ins, "cuda")
-    C, H, W = ins["depth"].shape
     pm_kernel.reset_launches()
+    _variants_rows(card, kernel_variants.as_args(ins, "cuda"), "dev")
+    launches = dict(pm_kernel.LAUNCHES)
+    if launches["score_view_v2_exact"] == 0 or launches["score_view_v2_nn"] == 0:
+        raise RuntimeError(f"K1-v2 was not launched: {launches}")
+    depth = ins["depth"] * np.float32(6) - np.float32(17)
+    den = np.einsum("chwk,hwk->chw", ins["normal"], ins["X0"]) * depth
+    inv_nd = np.where(np.abs(den) > 1e-12, 1.0 / den, 0.0).astype(np.float32)
+    spread = kernel_variants.as_args(dict(ins, depth=depth, inv_nd=inv_nd), "cuda")
+    for rec in _variants_rows(card, spread, "depths 1-4"):
+        if rec["in_window_share_of_in_bounds"] >= 1.0:
+            raise RuntimeError(f"K1-v2 ({rec['mode']}): no in-bounds footprint left "
+                               "the window, so its re-read from the image did not run")
+    return launches
+
+
+def _variants_rows(card, args, inputs):
+    """Per sampling mode, K1 and K1-v2 on ``args`` (K1's operands on the
+    card): times in turns, torch.equal, and K1-v2's window shares."""
+    import torch
+
+    from openmvs_tpu_torch.ops import pm_kernel
+
+    C, H, W = args[4].shape
+    rows = []
     for mode in ("exact", "nn"):
         nearest = mode == "nn"
 
@@ -513,19 +656,16 @@ def phase_variants(card):
         s1 = k1()
         torch.cuda.synchronize()
         t = [cuda_ms(k1, 20), cuda_ms(v2, 20), cuda_ms(v2, 20), cuda_ms(k1, 20)]
-        rec = {"phase": "variants", "mode": mode, "C": C, "H": H, "W": W,
-               "T": ins["goff"].shape[0], "k1_ms": [t[0], t[3]],
+        rec = {"phase": "variants", "inputs": inputs, "mode": mode, "C": C,
+               "H": H, "W": W, "T": args[8].shape[0], "k1_ms": [t[0], t[3]],
                "k1_v2_ms": [t[1], t[2]], "equal": bool(torch.equal(s1, s2)),
                **_window_shares(in_win, args, 1.2, nearest),
                "scored_share": float((s1 < 1.19).float().mean()), "card": card}
         emit(rec)
         if not rec["equal"]:
-            raise RuntimeError(f"K1-v2 ({mode}) differs from K1 on the dev inputs")
-    torch.cuda.synchronize()
-    launches = dict(pm_kernel.LAUNCHES)
-    if launches["score_view_v2_exact"] == 0 or launches["score_view_v2_nn"] == 0:
-        raise RuntimeError(f"K1-v2 was not launched: {launches}")
-    return launches
+            raise RuntimeError(f"K1-v2 ({mode}) differs from K1 on the {inputs} inputs")
+        rows.append(rec)
+    return rows
 
 
 class _StageLog(logging.Handler):
@@ -749,8 +889,8 @@ def phase_profile(card, scene):
 def phase_geom_split(card, scene, gts, default_maps, default_launches):
     """The densify path with geometric sweeps split (OMVS_GEOM_SPLIT=1):
     per geometric map K2-mv scores the incumbent once (init), and per
-    parity K3 runs once per neighbour view, then the scorer once with the
-    terms precomputed."""
+    parity K3-mv runs once for all neighbour views, then the scorer once
+    with the terms precomputed; the per-view K3 never."""
     from openmvs_tpu_torch.config import DenseOptions
     from openmvs_tpu_torch.synthetic import depth_quality
 
@@ -760,10 +900,9 @@ def phase_geom_split(card, scene, gts, default_maps, default_launches):
         scene, env={"OMVS_GEOM_SPLIT": "1"})
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
-    n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     geo = opts.estimation_geometric_iters
     n_maps = n * (1 + geo)
-    expected = {"geom_term": geo * sum(2 * v for v in n_nbrs),
+    expected = {"geom_terms": geo * 2 * n, "geom_term": 0,
                 "score_views_geom_exact": geo * n,
                 "score_views_pre_exact": geo * 2 * n,
                 "score_views_exact": default_launches["score_views_exact"],
@@ -815,24 +954,24 @@ def phase_parity(card):
 
 def phase_geom_unfused(card, default_maps):
     """The 120x160 scene on the card with geometric scoring unfused
-    (OMVS_GEOM_FUSED=0: K3 per view, then the scorer with the terms
+    (OMVS_GEOM_FUSED=0: K3-mv for all views, then the scorer with the terms
     precomputed, in place of K2-mv), against the default run of phase
     parity."""
     from openmvs_tpu_torch.config import DenseOptions
     from openmvs_tpu_torch.synthetic import build_gt_scene
 
-    scene, _, _ = build_gt_scene(n_views=5, W=160, H=120)
+    n = 5
+    scene, _, _ = build_gt_scene(n_views=n, W=160, H=120)
     pc, maps, wall, launches, _, calls = _run_densify(
         scene, env={"OMVS_GEOM_FUSED": "0"})
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
-    n_nbrs = [len(im.meta.view_scores) for im in scene.images]
-    # per geometric map: the incumbent (C=1) and two parities, V views each
+    # per geometric map: the incumbent (C=1) and two parities, one K3-mv
+    # launch and one precomputed-mode launch each
     geo = DenseOptions().estimation_geometric_iters
-    k3_expected = geo * sum(3 * v for v in n_nbrs)
-    pre_expected = geo * 3 * len(n_nbrs)
+    k3_expected = pre_expected = geo * 3 * n
     k2 = launches["score_views_geom_exact"] + launches["score_views_geom_nn"]
     rec = {"phase": "geom_unfused", "H": 120, "W": 160, "points": len(pc),
-           "wall_s": wall, "launches": launches, "geom_term_expected": k3_expected,
+           "wall_s": wall, "launches": launches, "geom_terms_expected": k3_expected,
            "score_views_pre_expected": pre_expected,
            "score_hypotheses_calls": calls,
            "mask_agreement_with_default": mask_agree,
@@ -840,10 +979,11 @@ def phase_geom_unfused(card, default_maps):
            "bit_identical_with_default": identical, "card": card}
     emit(rec)
     _check_scoring(launches, calls)
-    if (launches["geom_term"] != k3_expected or k2 != 0
+    if (launches["geom_terms"] != k3_expected or launches["geom_term"] or k2
             or launches["score_views_pre_exact"] != pre_expected):
         raise RuntimeError(f"unfused launches {launches}: expected {k3_expected} "
-                           f"K3, {pre_expected} precomputed-mode and no K2-mv")
+                           f"K3-mv, {pre_expected} precomputed-mode, no per-view "
+                           "K3 and no K2-mv")
     if min(mask_agree) < 0.999 or min(depth_agree) < 0.999:
         raise RuntimeError("unfused and default depth maps disagree")
 

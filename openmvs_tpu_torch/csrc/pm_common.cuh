@@ -1,10 +1,10 @@
 // Device arithmetic shared by the PatchMatch kernels (pm_score.cu,
-// pm_score_v2.cu): the samplers, the ZNCC epilogue and the
-// geometric-consistency term. K2 and K3 share geom_cons; K1/K2 and K1-v2
-// share the samplers and the epilogue, and K1-v2's texel warp
-// (pm_score_v2.cu) is K1's op for op, so the kernels round each step the
-// same way and agree to the bit where they compute the same function
-// (chip_smoke.py checks K1-v2 against K1 with torch.equal).
+// pm_score_v2.cu, pm_score_views.cu, pm_geom_views.cu): the samplers, the
+// ZNCC epilogue and the geometric-consistency term. K2, K3, K2-mv and K3-mv
+// share geom_cons; K1/K2 and K1-v2 share the samplers and the epilogue, and
+// K1-v2's texel warp (pm_score_v2.cu) is K1's op for op, so the kernels
+// round each step the same way and agree to the bit where they compute the
+// same function (chip_smoke.py checks K1-v2 against K1 with torch.equal).
 //
 // Rounding: the plain versions in ops/pm_kernel.py fuse the multiply-adds
 // that XLA's CPU backend fuses in the JAX package (utils/fmath.py), and the
@@ -98,6 +98,14 @@ __device__ __forceinline__ float zncc_score(float num, float ssum, float ssq,
   const float rs = (float)(1.0 / sqrt((double)fmaxf(nrm_sq, 1e-30f)));
   const float ncc = fminf(fmaxf(num * rs, -1.f), 1.f);
   return (nrm_sq <= 1e-16f || !inb) ? th_robust : 1.f - ncc;
+}
+
+// The same pointer, opaque to the compiler, so it cannot fold a base
+// offset into every gather's address (which costs 64-bit arithmetic per
+// gather): each address is then one 32-bit multiply-add and one wide add.
+__device__ __forceinline__ const float* opaque(const float* p) {
+  asm("" : "+l"(p));
+  return p;
 }
 
 // Forward-backward geometric penalty of one (candidate, pixel) in [0, 4]

@@ -110,10 +110,10 @@ pm_score(const float* __restrict__ img, int Hp, int Wp,
   const float sz0 = pm::row3(hl + 6, xa, xb, xc);
   const float inv_d = 1.f / d;
 
-  // the texel loop is written out here rather than through the helpers
-  // K1-v2 uses (pm::pixel_warp, pm::warp_texel): the same arithmetic, but
-  // built through the helpers K1 took 0.41 ms in exact mode at C=11,
-  // 480x640 against 0.37 ms in this form (chip_smoke.py, H100 80GB HBM3)
+  // the texel loop is written out here rather than through small inline
+  // helpers: the same arithmetic, but built through helpers K1 took 0.41 ms
+  // in exact mode at C=11, 480x640 against 0.37 ms in this form
+  // (chip_smoke.py, H100 80GB HBM3)
   float num = 0.f, ssum = 0.f, ssq = 0.f;
   bool inb = true;
   for (int k = 0; k < T; ++k) {

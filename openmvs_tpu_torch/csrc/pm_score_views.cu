@@ -122,14 +122,6 @@ __device__ __forceinline__ float nearest_texel(const float* __restrict__ img,
   return __ldg(img + (yi * Wp + xi));
 }
 
-// The same pointer, opaque to the compiler, so it cannot fold a view's base
-// offset into every gather's address (which costs 64-bit arithmetic per
-// texel): each address is then one 32-bit multiply-add and one wide add.
-__device__ __forceinline__ const float* opaque(const float* p) {
-  asm("" : "+l"(p));
-  return p;
-}
-
 // floats of dynamic shared memory: texel warps (V, T) float4, weights
 // (T, P) float2, scales (T, threads), goff (T, 3), view constants (V)
 size_t smem_bytes(int V, int T, int P, int threads) {
@@ -235,7 +227,7 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
       const pm::ViewConsts& cv = vc[j];
       const float* hl = cv.hl;
       const float4* sg = s_sg + T * j;
-      const float* imj = opaque(img + (size_t)j * Hp * Wp);
+      const float* imj = pm::opaque(img + (size_t)j * Hp * Wp);
       const float hm0 = cv.hm[0], hm1 = cv.hm[1], hm2 = cv.hm[2];
       const float h_j = cv.h, w_j = cv.w;
       const float x_max = w_j - 2.f, y_max = h_j - 2.f;

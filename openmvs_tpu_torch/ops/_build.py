@@ -28,7 +28,8 @@ BUILD_DIR = _PKG / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_TEXELS = 128
-MAX_VIEWS = 12  # DenseOptions.max_views: the multi-view scorer's limit
+MAX_VIEWS = 12  # DenseOptions.max_views: the multi-view kernels' limit
+V2_MAX_TEXELS = 96  # K1-v2 stages the tile's weights of at most this many texels
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every exported function, by library (source stem)
@@ -74,15 +75,27 @@ SIGNATURES = {
     },
     "pm_score_v2": {
         "pm_score_view_v2": [
-            P, I, I,            # img, Hp, Wp
+            P, I, I, I,         # img, Hp, Wp, img_pitch
             P, P, P,            # size, Hl, Hm
             P, P, P, P,         # depth, normal, inv_nd, X0
-            P, I, P, P,         # goff, T, w, wtm
+            P, I, P, P, I,      # goff, T, w, wtm, w_pitch
             P, P,               # sum_w, norm_sq0
             P, P,               # score, in_window
             I, I, I, F, I,      # C, H, W, th_robust, nearest
             P,                  # stream
         ],
+        "pm_v2_max_texels": [],
+    },
+    "pm_geom_views": {
+        "pm_geom_views_launch": [
+            P, I, I,            # dms (V, Hd, Wd), Hd, Wd
+            P, P, P, P, P,      # sizes, Tl, Tm, Tr, Tn (stacked over V)
+            P, P, P,            # depth, X0, uv
+            P,                  # out (V, C, H, W)
+            I, I, I, I,         # V, C, H, W
+            P,                  # stream
+        ],
+        "pm_geom_views_max_views": [],
     },
 }
 RESTYPES = {"pm_error_string": ctypes.c_char_p}
@@ -160,10 +173,13 @@ def library(name: str = "pm_score") -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = RESTYPES.get(fn, I)
-    if name == "pm_score" and lib.pm_max_texels() != MAX_TEXELS:
-        raise RuntimeError("pm_score library and wrapper disagree on MAX_TEXELS")
-    if name == "pm_score_views" and lib.pm_views_max_views() != MAX_VIEWS:
-        raise RuntimeError("pm_score_views library and wrapper disagree on MAX_VIEWS")
+    limits = {"pm_score": ("pm_max_texels", MAX_TEXELS),
+              "pm_score_views": ("pm_views_max_views", MAX_VIEWS),
+              "pm_geom_views": ("pm_geom_views_max_views", MAX_VIEWS),
+              "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS)}
+    fn, want = limits[name]
+    if getattr(lib, fn)() != want:
+        raise RuntimeError(f"{name} library and wrapper disagree on {fn}")
     _libs[name] = lib
     return lib
 

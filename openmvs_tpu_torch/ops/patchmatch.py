@@ -10,11 +10,12 @@ DepthMap.cpp:465-626).
 
 Scoring goes through the kernels of ``ops/pm_kernel.py``, which run their
 plain versions on CPU tensors: one launch of the multi-view scorer per
-candidate stack (K1-mv photometric, K2-mv photometric + geometric), and K3
-for the geometric term alone. Geometric sweeps score with K2-mv by
-default; the split sweep (``OMVS_GEOM_SPLIT``) and the unfused scorer
-(``OMVS_GEOM_FUSED=0``) compute the terms with K3 first, score with the
-scorer's precomputed mode, and give the same result.
+candidate stack (K1-mv photometric, K2-mv photometric + geometric), and
+one launch of K3-mv for the geometric terms alone, all views at once.
+Geometric sweeps score with K2-mv by default; the split sweep
+(``OMVS_GEOM_SPLIT``) and the unfused scorer (``OMVS_GEOM_FUSED=0``)
+compute the terms with K3-mv first, score with the scorer's precomputed
+mode, and give the same result.
 Everything stays float32, and every 3x3 warp is written
 elementwise: a reduced-precision product there shifts warped coordinates
 by a tenth of a pixel (see the JAX package's note at patchmatch.py:436).
@@ -262,7 +263,7 @@ def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
 
     With ``use_geom`` the geometric term of view j is ``geom_terms[j]``
     when a precomputed (V, C, H, W) stack is given (the split sweep), else
-    the scorer computes it (K2-mv), or K3 computes the stack first under
+    the scorer computes it (K2-mv), or K3-mv computes the stack first under
     ``OMVS_GEOM_FUSED=0``; all three give the same term."""
     if mode not in ("exact", "nn"):
         raise ValueError(f"scoring mode {mode!r} is not ported")
@@ -486,15 +487,14 @@ def _rescored(state: PMState, data: PMData, opts, n_views, use_geom, mode,
 
 def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor) -> torch.Tensor:
     """(V, C, H, W) geometric terms of candidate depths ``depth_c`` against
-    every neighbour, K3 once per view (the plain version on CPU tensors).
-    ``OMVS_GEOM_DEBUG`` prints each call's comparison with the plain
-    version."""
+    the first ``n_views`` neighbours, from one launch of K3-mv (the plain
+    version on CPU tensors). ``OMVS_GEOM_DEBUG`` prints each call's
+    comparison with the plain version."""
     v = data.views
     depth_c = depth_c.contiguous()
-    out = torch.stack([
-        pm_kernel.geom_term(v.depth[j], v.size[j], v.Tl[j], v.Tm[j], v.Tr[j],
-                            v.Tn[j], depth_c, data.X0, data.uv)
-        for j in range(n_views)])
+    out = pm_kernel.geom_terms(
+        *(t[:n_views] for t in (v.depth, v.size, v.Tl, v.Tm, v.Tr, v.Tn)),
+        depth_c, data.X0, data.uv)
     if os.environ.get("OMVS_GEOM_DEBUG"):
         ref = torch.stack([
             _geometric_term(data, None, depth_c, v.depth[j], v.size[j], v.Tl[j],
@@ -523,7 +523,7 @@ def _rescore_with_geom(state, data, opts, n_views, mode, geom):
 def _sweep_geom_split(state, data, opts, key, n_views, n_perturb, mode,
                       rescore_state, n_prop):
     """A geometric sweep in three steps per half-step: candidates, their
-    geometric terms against every view (K3), then scoring with the terms
+    geometric terms against every view (K3-mv), then scoring with the terms
     precomputed and selection."""
     if rescore_state:
         g = _geom_all_views(data, n_views, state.depth[None])
@@ -552,7 +552,7 @@ def sweep(state: PMState, data: PMData, opts: DenseOptions, key, n_views: int,
     the geometric terms of all views, then scoring and selection; the JAX
     package's ``_sweep_geom_split``). In the JAX package ``1`` takes the
     Pallas geometric kernel and ``xla`` its XLA term; the port has one
-    term, so both launch K3 on the card and both run its plain version on
+    term, so both launch K3-mv on the card and both run its plain version on
     CPU tensors. The result equals the default sweep's."""
     if fold:
         key = rng.fold_in(key, fold)

@@ -1,12 +1,15 @@
-"""The PatchMatch kernels K1-mv, K2-mv, K1, K2, K3 and K1-v2: wrappers,
-plain versions and launch counts.
+"""The PatchMatch kernels K1-mv, K2-mv, K3-mv, K1, K2, K3 and K1-v2:
+wrappers, plain versions and launch counts.
 
 K1-mv and K2-mv, ``score_views``, are K1 and K2 redesigned for the card:
 one launch scores C candidate planes against all neighbour views and
 returns the aggregate of ``score_hypotheses`` (the per-view epilogue
 ``finish_views`` and the min-mean of the best two views), reading each
 pixel's patch weights once (``csrc/pm_score_views.cu``). The sweep scores
-through it; K1 and K2 stay as the per-view design it replaced.
+through it; K1 and K2 stay as the per-view design it replaced. K3-mv,
+``geom_terms``, is K3 redesigned the same way: one launch writes the
+geometric terms of all views (``csrc/pm_geom_views.cu``), which the split
+sweep and the unfused scorer precompute.
 
 K1, ``score_view``, replaces ``_score_view_pallas``
 (``openmvs_tpu/ops/pm_kernel.py:819``): the bilaterally weighted ZNCC of C
@@ -16,10 +19,10 @@ the forward-backward geometric-consistency penalty of each candidate, from
 one launch. K3, ``geom_term``, replaces ``geom_term_pallas``
 (``pm_kernel.py:691``): the geometric penalty alone. K1-v2,
 ``score_view_v2``, replaces ``score_view_v2``
-(``scripts/dev_kernel_variants.py:282``): K1 with the neighbour image
-window staged in shared memory. K1, K2 and K3 are CUDA kernels in
-``csrc/pm_score.cu``, K1-v2 in ``csrc/pm_score_v2.cu``, built on first use
-(``ops/_build.py``).
+(``scripts/dev_kernel_variants.py:282``): K1 with the tile's weights and a
+window of the neighbour image staged in shared memory by TMA. K1, K2 and K3
+are CUDA kernels in ``csrc/pm_score.cu``, K1-v2 in ``csrc/pm_score_v2.cu``,
+built on first use (``ops/_build.py``).
 
 The plain versions here are the port of the JAX package's XLA CPU path
 (``_score_one_view_scan`` and ``_geometric_term``, patchmatch.py:285-480).
@@ -51,7 +54,8 @@ LAUNCHES = {"score_views_exact": 0, "score_views_nn": 0,
             "score_views_pre_exact": 0, "score_views_pre_nn": 0,
             "score_view_exact": 0, "score_view_nn": 0,
             "score_view_geom_exact": 0, "score_view_geom_nn": 0,
-            "geom_term": 0, "score_view_v2_exact": 0, "score_view_v2_nn": 0}
+            "geom_term": 0, "geom_terms": 0,
+            "score_view_v2_exact": 0, "score_view_v2_nn": 0}
 # score_views' geometric modes, as the kernel numbers them
 _GEOM_MODES = {"none": 0, "geom": 1, "pre": 2}
 
@@ -185,6 +189,14 @@ def geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
     return torch.where(similar & zbok, cons, 4.0)
 
 
+def geom_terms_plain(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
+    """The plain version of ``geom_terms``: ``geom_term_plain`` of each of
+    the V views, stacked (V, C, H, W)."""
+    return torch.stack([geom_term_plain(dms[j], sizes[j], Tl[j], Tm[j], Tr[j],
+                                        Tn[j], depth, X0, uv)
+                        for j in range(dms.shape[0])])
+
+
 def finish_views(per_view, n_views, sizes, bonus, f_blend, delta, d0, *,
                  th_robust: float, geom_weight: float) -> torch.Tensor:
     """(C, H, W) aggregate of per-view scores: ``per_view(j)`` gives view
@@ -303,6 +315,24 @@ def check_geom_operands(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> None:
         _check(name, t, shape, dev)
 
 
+def check_geom_views_operands(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv) -> None:
+    """Raise unless the operands are what K3-mv takes: contiguous float32
+    tensors on depth's device, K3's operands stacked over 1 to
+    ``MAX_VIEWS`` views."""
+    dev = depth.device
+    C, H, W = _candidate_shape(depth)
+    if dms.dim() != 3:
+        raise ValueError(f"dms: {dms.dim()}-D, expected (V, Hd, Wd)")
+    V = dms.shape[0]
+    if not 1 <= V <= _build.MAX_VIEWS:
+        raise ValueError(f"dms: {V} views, expected 1 to {_build.MAX_VIEWS}")
+    ops = dict(dms=(dms, dms.shape), sizes=(sizes, (V, 2)), Tl=(Tl, (V, 3, 3)),
+               Tm=(Tm, (V, 3)), Tr=(Tr, (V, 3, 3)), Tn=(Tn, (V, 3)),
+               depth=(depth, (C, H, W)), X0=(X0, (H, W, 3)), uv=(uv, (H, W, 2)))
+    for name, (t, shape) in ops.items():
+        _check(name, t, shape, dev)
+
+
 def check_views_operands(images, sizes, Hl, Hm, depth, normal, inv_nd, X0,
                         goff, w, wtm, sum_w, norm_sq0, bonus, f_blend, delta,
                         d0, Tr=None, Tn=None, dms=None, uv=None,
@@ -354,8 +384,24 @@ def _cuda_device(depth: torch.Tensor) -> torch.device:
 
 
 def _raise_on(rc: int, fn: str) -> None:
+    if rc < 0:
+        raise RuntimeError(f"{fn}: the driver refused a tensor map (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: {_build.error_string(rc)}")
+
+
+def _pitched(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(t, row pitch in floats) for a TMA load, which needs 16-byte-aligned
+    row strides and base: t itself where its rows are a multiple of 4 floats
+    long and it starts 16-byte aligned, else a copy with the rows padded to
+    a multiple of 4 floats. The values are the same."""
+    width = t.shape[-1]
+    pitch = -(-width // 4) * 4
+    if pitch == width and t.data_ptr() % 16 == 0:
+        return t, width
+    out = torch.zeros(*t.shape[:-1], pitch, dtype=t.dtype, device=t.device)
+    out[..., :width] = t
+    return out, pitch
 
 
 def _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0, uv,
@@ -448,11 +494,14 @@ def score_view_v2(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
                   sum_w, norm_sq0, *, th_robust: float, nearest: bool = False,
                   in_window: torch.Tensor = None) -> torch.Tensor:
     """(C, H, W) scores (K1-v2): K1's function, bit for bit, with each
-    block's window of the neighbour image staged in shared memory. Argument
-    order and layouts are K1's. ``in_window``, an optional (C, H, W) uint8
-    tensor on the card, receives 1 where every texel of the (candidate,
-    pixel) was read from the window; the plain version has no window and
-    takes none."""
+    block's weights and window of the neighbour image staged in shared
+    memory by TMA. Argument order and layouts are K1's; the kernel takes at
+    most ``V2_MAX_TEXELS`` texels. ``in_window``, an optional (C, H, W)
+    uint8 tensor on the card, receives 1 where every texel of the
+    (candidate, pixel) was read from the window; the plain version has no
+    window and takes none."""
+    check_scorer_operands(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff,
+                          w, wtm, sum_w, norm_sq0)
     if depth.device.type == "cpu":
         if in_window is not None:
             raise ValueError("in_window: only the kernel stages a window")
@@ -460,27 +509,57 @@ def score_view_v2(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
                                 goff, w, wtm, sum_w, norm_sq0,
                                 th_robust=th_robust, nearest=nearest)[0]
     dev = _cuda_device(depth)
-    check_scorer_operands(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff,
-                          w, wtm, sum_w, norm_sq0)
     C, H, W = depth.shape
-    if C > 65535:
-        raise ValueError(f"score_view_v2: {C} candidates, at most 65535")
+    T = goff.shape[0]
+    if T > _build.V2_MAX_TEXELS:
+        raise ValueError(f"score_view_v2: {T} texels, at most {_build.V2_MAX_TEXELS}")
     if in_window is not None:
         _check("in_window", in_window, (C, H, W), dev, torch.uint8)
+    img_p, img_pitch = _pitched(img)
+    w_p, w_pitch = _pitched(w)
+    wtm_p, _ = _pitched(wtm)
     score = torch.empty_like(depth)
     lib = _build.library("pm_score_v2")
     with torch.cuda.device(dev):
         rc = lib.pm_score_view_v2(
-            _ptr(img), img.shape[0], img.shape[1], _ptr(size), _ptr(Hl),
-            _ptr(Hm), _ptr(depth), _ptr(normal), _ptr(inv_nd), _ptr(X0),
-            _ptr(goff), goff.shape[0], _ptr(w), _ptr(wtm), _ptr(sum_w),
-            _ptr(norm_sq0), _ptr(score),
+            _ptr(img_p), img.shape[0], img.shape[1], img_pitch, _ptr(size),
+            _ptr(Hl), _ptr(Hm), _ptr(depth), _ptr(normal), _ptr(inv_nd),
+            _ptr(X0), _ptr(goff), T, _ptr(w_p), _ptr(wtm_p), w_pitch,
+            _ptr(sum_w), _ptr(norm_sq0), _ptr(score),
             _ptr(in_window) if in_window is not None else ctypes.c_void_p(0),
             C, H, W, ctypes.c_float(th_robust), int(nearest),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_score_view_v2")
     LAUNCHES["score_view_v2_nn" if nearest else "score_view_v2_exact"] += 1
     return score
+
+
+def geom_terms(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
+    """(V, C, H, W) geometric penalties in [0, 4] of C candidate depth maps
+    against V neighbour depth maps (K3-mv): ``geom_term`` of each view,
+    stacked, from one launch. ``dms`` (V, Hd, Wd), ``sizes`` (V, 2), ``Tl``
+    and ``Tr`` (V, 3, 3), ``Tm`` and ``Tn`` (V, 3) are K3's per-view
+    operands stacked; ``depth`` is raw (zeros mark invalid hypotheses). The
+    result is the tensor the scorer's precomputed mode reads."""
+    check_geom_views_operands(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv)
+    if depth.device.type == "cpu":
+        return geom_terms_plain(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv)
+    dev = _cuda_device(depth)
+    V, Hd, Wd = dms.shape
+    C, H, W = depth.shape
+    if C > 65535 or V * C * H * W >= 2 ** 31:
+        raise ValueError(f"geom_terms: {V} x {C} x {H} x {W} terms, at most "
+                         "65535 candidates and 2^31 terms")
+    out = torch.empty((V, C, H, W), dtype=torch.float32, device=dev)
+    lib = _build.library("pm_geom_views")
+    with torch.cuda.device(dev):
+        rc = lib.pm_geom_views_launch(
+            _ptr(dms), Hd, Wd, _ptr(sizes), _ptr(Tl), _ptr(Tm), _ptr(Tr),
+            _ptr(Tn), _ptr(depth), _ptr(X0), _ptr(uv), _ptr(out), V, C, H, W,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "pm_geom_views_launch")
+    LAUNCHES["geom_terms"] += 1
+    return out
 
 
 def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,

@@ -1,9 +1,9 @@
 """The port's split and unfused geometric sweeps.
 
 ``OMVS_GEOM_SPLIT`` (``1`` or ``xla``) splits a geometric sweep into
-candidates, the geometric terms of all views (K3), and scoring with the
+candidates, the geometric terms of all views (K3-mv), and scoring with the
 terms precomputed plus selection; ``OMVS_GEOM_FUSED=0`` computes the terms
-with K3 in place of the scorer's fused term (K2-mv). On a
+with K3-mv in place of the scorer's fused term (K2-mv). On a
 96x128 example with two neighbour views and neighbour depth maps with
 holes (``make_case(geom=True)``):
 
@@ -133,13 +133,15 @@ def test_score_hypotheses_with_geom_terms_matches_jax(case):
 def _counting(monkeypatch):
     """Count calls of the kernel wrappers, by name and candidate count: the
     multi-view scorer by its geometric mode (``score_views`` with no term,
-    ``score_views_geom`` fused, ``score_views_pre`` precomputed), and K3."""
+    ``score_views_geom`` fused, ``score_views_pre`` precomputed), K3-mv and
+    the per-view K3."""
     calls = {}
 
     def count(key):
         calls[key] = calls.get(key, 0) + 1
 
     views, geom_term = pm_kernel.score_views, pm_kernel.geom_term
+    geom_terms = pm_kernel.geom_terms
 
     def counted_views(*a, **kw):
         mode = ("_geom" if kw.get("dms") is not None else
@@ -151,16 +153,21 @@ def _counting(monkeypatch):
         count(("geom_term", a[6].shape[0]))
         return geom_term(*a, **kw)
 
+    def counted_geom_terms(*a, **kw):
+        count(("geom_terms", a[6].shape[0]))
+        return geom_terms(*a, **kw)
+
     monkeypatch.setattr(pm_kernel, "score_views", counted_views)
     monkeypatch.setattr(pm_kernel, "geom_term", counted_geom_term)
+    monkeypatch.setattr(pm_kernel, "geom_terms", counted_geom_terms)
     return calls
 
 
 def test_geometric_map_routes_under_split(case, monkeypatch):
     """A geometric map's estimation (init_state, then one exact sweep of
     C=11 candidates) under OMVS_GEOM_SPLIT=1 scores the incumbent with the
-    fused multi-view scorer (K2-mv) once, then per parity runs K3 once per
-    view and the scorer once with the terms precomputed."""
+    fused multi-view scorer (K2-mv) once, then per parity runs K3-mv once
+    for all views and the scorer once with the terms precomputed."""
     data, st, _, po, key = case
     pd = port_data(data)
     calls = _counting(monkeypatch)
@@ -169,7 +176,7 @@ def test_geometric_map_routes_under_split(case, monkeypatch):
                            mode="exact")
     tpm.sweep(state, pd, po, _key(key), V, True, n_perturb=3, mode="exact",
               n_prop=8, fold=1)
-    assert calls == {("score_views_geom", 1): 1, ("geom_term", 11): 2 * V,
+    assert calls == {("score_views_geom", 1): 1, ("geom_terms", 11): 2,
                      ("score_views_pre", 11): 2}
 
 
@@ -181,7 +188,8 @@ def _maps(folder, n):
 def test_dense_reconstruction_split_equals_default(tmp_path, monkeypatch):
     """The 120x160 slice scene (3 views, one sub-resolution level, one
     geometric pass) gives the same depth maps under the split sweep, which
-    runs K3 twice per neighbour view in each geometric map."""
+    runs K3-mv twice in each geometric map (once per parity, all views at
+    once) and the per-view K3 never."""
     scene, _, _ = build_gt_scene(n_views=3, W=160, H=120)
     opts = DenseOptions(**SLICE_OPTS)
     pdens.dense_reconstruction(scene, opts, save_dmaps_to=str(tmp_path / "default"),
@@ -192,8 +200,10 @@ def test_dense_reconstruction_split_equals_default(tmp_path, monkeypatch):
                                device="cpu")
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     geo = opts.estimation_geometric_iters
-    k3 = sum(n for (name, _), n in calls.items() if name == "geom_term")
+    k3 = sum(n for (name, _), n in calls.items() if name == "geom_terms")
+    k3_per_view = sum(n for (name, _), n in calls.items() if name == "geom_term")
     k2 = sum(n for (name, _), n in calls.items() if name == "score_views_geom")
-    assert (k3, k2) == (geo * sum(2 * v for v in n_nbrs), geo * len(n_nbrs))
+    assert all(n_nbrs)
+    assert (k3, k3_per_view, k2) == (geo * 2 * len(n_nbrs), 0, geo * len(n_nbrs))
     for a, b in zip(_maps(tmp_path / "default", 3), _maps(tmp_path / "split", 3)):
         np.testing.assert_array_equal(a, b)

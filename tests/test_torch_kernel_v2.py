@@ -102,3 +102,25 @@ def test_v2_window_share_is_the_kernels():
     with pytest.raises(ValueError, match="in_window"):
         tk.score_view_v2(*args, th_robust=1.2,
                          in_window=torch.zeros(1, 16, 32, dtype=torch.uint8))
+
+
+def test_v2_operand_checks_raise_on_a_non_contiguous_image():
+    args = list(kernel_variants.as_args(kernel_variants.make_inputs(C=1, H=16, W=32), "cpu"))
+    args[0] = args[0].t().contiguous().t()
+    assert not args[0].is_contiguous()
+    with pytest.raises(ValueError, match="img: not contiguous"):
+        tk.score_view_v2(*args, th_robust=1.2)
+
+
+@pytest.mark.parametrize("width,pitch", [(32, 32), (30, 32), (33, 36)])
+def test_v2_rows_are_pitched_for_tma(width, pitch):
+    """TMA needs 16-byte row strides: the wrapper pads rows that are not a
+    multiple of 4 floats long, in a copy with the same values."""
+    img = torch.arange(3 * width, dtype=torch.float32).reshape(3, width)
+    out, got = tk._pitched(img)
+    assert got == pitch and out.shape == (3, pitch)
+    assert torch.equal(out[:, :width], img)
+    assert (out is img) == (width == pitch)
+    # a misaligned base is copied too
+    tail = torch.zeros(3 * 32 + 1)[1:].reshape(3, 32)
+    assert tk._pitched(tail)[0] is not tail
