@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PatchMatch densify path on one NVIDIA GPU.
+"""Drive the PyTorch port's PatchMatch densify and mesh refinement paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,6 +42,16 @@ Phases, each printing one JSON line:
   9. geom_unfused - the 120x160 scene on the card under OMVS_GEOM_FUSED=0
                   (K3-mv, then the precomputed mode, in place of K2-mv)
                   against phase parity's card maps
+ 10. refine     - refine.refine_mesh(scene, mesh, RefineOptions()) on the
+                  card for the 5-view 640x480 scene and the height field's
+                  150-grid (44,402 faces) with z-noise N(0, 0.05): seconds
+                  per call and scale, pairs, refreshes, host seconds, peak
+                  memory, mean height error before and after (held to 0.85x
+                  its start and 1.05x the JAX package's); CUDA-event ms of
+                  one full-scale iteration; torch.profiler over one
+                  full-scale refresh block; card against CPU on the tests'
+                  small case and for one full-scale _energy_grad. Plain
+                  PyTorch: the JAX package reaches no Pallas kernel here
 Each of phases 4, 5, 7 and 9 sets the launch counts to 0 just before the
 path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
@@ -66,6 +77,14 @@ JAX_ACCURACY = [0.9904370367939697, 0.9914687213715482, 0.9839826680865127,
                 0.9906634129450852, 0.9894338372725767]
 JAX_COMPLETENESS = [0.963409963432761, 0.9450504042475226, 0.9660440752877728,
                     0.9466281181192615, 0.9618086060578184]
+
+# Mean |z - height(x, y)| over the vertices that the JAX package's
+# refine_mesh reaches on phase refine's workload (5 views at 640x480, the
+# 150-grid with z-noise N(0, 0.05) from default_rng(11), RefineOptions()),
+# CPU, measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_refine_quality.py --height 480 --width 640
+# (0.039844 before refinement; 53.7 s on the CPU)
+JAX_REFINE_HEIGHT_ERROR = 0.010049285568380237
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -988,6 +1007,239 @@ def phase_geom_unfused(card, default_maps):
         raise RuntimeError("unfused and default depth maps disagree")
 
 
+def _noisy_grid(grid, seed):
+    """(ground-truth mesh, its vertices with z-noise N(0, 0.05) from
+    default_rng(seed)); bench.py's refine leg perturbs the same way."""
+    import numpy as np
+
+    from openmvs_tpu_torch.synthetic import height_field_mesh
+
+    gt = height_field_mesh(grid)
+    v = gt.vertices.copy()
+    v[:, 2] += np.random.default_rng(seed).normal(0, 0.05, len(v)).astype(np.float32)
+    return gt, v
+
+
+def _height_error(vertices):
+    """Mean |z - height(x, y)| over the vertices."""
+    import numpy as np
+
+    from openmvs_tpu_torch.synthetic import height
+
+    v = np.asarray(vertices, np.float64)
+    return float(np.abs(v[:, 2] - height(v[:, 0], v[:, 1])).mean())
+
+
+class _FullScale:
+    """The full-scale inputs of one refinement iteration for vertices
+    ``v0`` (subdivided as refine_mesh's last scale would), on the host;
+    ``on(dev)`` uploads them: (PairData, MeshTensors, the four float32
+    scalars, PairStatic)."""
+
+    def __init__(self, scene, v0, faces):
+        import numpy as np
+
+        from openmvs_tpu_torch import refine
+        from openmvs_tpu_torch.config import RefineOptions
+        from openmvs_tpu_torch.convert import mesh_from_numpy
+
+        opts = RefineOptions()
+        self.pairs = refine.select_pairs(scene, opts)
+        self.grays, self.cams = refine.scaled_views(scene, 1.0)
+        t0 = time.perf_counter()
+        mesh = refine.subdivide_to_area(mesh_from_numpy(v0, faces), scene,
+                                        float(opts.max_face_area))
+        t1 = time.perf_counter()
+        self.v, self.faces = mesh.vertices, mesh.faces
+        self.adj, self.deg = refine._vertex_adjacency(self.faces, len(self.v))
+        # host seconds of the two Python loops over faces, once per scale
+        self.host_s = {"subdivide": t1 - t0, "adjacency": time.perf_counter() - t1}
+        self.bnd = refine._vertex_boundary(self.faces, len(self.v))
+        self.statics = refine.build_statics(self.pairs, self.grays, self.cams)
+        e = self.v[self.faces[:, 0]] - self.v[self.faces[:, 1]]
+        self.scalars = (refine.decode_step(opts.gradient_step),
+                        float(np.median(np.linalg.norm(e, axis=1))),
+                        opts.regularity_weight, opts.rigidity_elasticity_ratio)
+
+    def rasters(self, v):
+        from openmvs_tpu_torch import refine
+
+        return refine.build_rasters(self.pairs, self.grays, self.cams, self.faces, v)
+
+    def on(self, dev):
+        import torch
+
+        from openmvs_tpu_torch import refine
+
+        mt = refine.mesh_tensors(self.v, self.faces, self.adj, self.deg, self.bnd, dev)
+        statics = refine.to_device(self.statics, dev)
+        pds = refine._assemble_pair_data(statics, refine.to_device(self.rasters(self.v), dev),
+                                         mt.faces)
+        scal = [torch.tensor(x, dtype=torch.float32, device=dev) for x in self.scalars]
+        return pds, mt, scal, statics
+
+
+def _profile_refresh(fs, dev):
+    """One full-scale refresh block as _refine_at_scale runs it (download,
+    rasterize, upload, 8 iterations, the energy read), once unprofiled and
+    once under torch.profiler: launches per iteration, device-busy share
+    of the unprofiled wall, the top 10 device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmvs_tpu_torch import refine
+
+    _, mt, (step0, med, reg_w, ratio), statics = fs.on(dev)
+
+    def block():
+        t0 = time.perf_counter()
+        v = mt.verts
+        r = refine.to_device(fs.rasters(v.cpu().numpy()), dev)
+        p = refine._assemble_pair_data(statics, r, mt.faces)
+        for k in range(refine.RERASTER):
+            v, e = refine._device_iter(v, k, p, mt.adj, mt.deg, mt.faces, step0,
+                                       med, reg_w, mt.boundary, ratio)
+        float(e)
+        return time.perf_counter() - t0
+
+    block()
+    wall = block()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_profiled = block()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in dev_events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    copies = sum(cnt for name, (_, cnt) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    busy_s = _union_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_events]) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"block_wall_s": wall, "block_wall_profiled_s": wall_profiled,
+            "iterations": refine.RERASTER,
+            "kernel_launches_per_iteration": (len(dev_events) - copies) / refine.RERASTER,
+            "copies": copies, "device_busy_s": busy_s,
+            "device_busy_share": min(busy_s / wall, 1.0),
+            "top10_kernels": [{"name": name[:160], "total_ms": tot / 1e3, "count": cnt,
+                               "share_of_busy": tot / 1e6 / busy_s}
+                              for name, (tot, cnt) in top] if busy_s else []}
+
+
+def _refine_card_vs_cpu():
+    """The tests' small case (3 views at 160x120, the 22-grid with z-noise
+    from default_rng(7), RefineOptions(scales=2, iters=8,
+    max_face_area=64)) through refine_mesh on the card and on the CPU:
+    (rms distance difference, largest per-vertex difference, seconds)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from openmvs_tpu_torch import refine
+    from openmvs_tpu_torch.config import RefineOptions
+    from openmvs_tpu_torch.convert import mesh_from_numpy
+    from openmvs_tpu_torch.synthetic import build_gt_scene
+
+    out, secs = {}, {}
+    gt, v0 = _noisy_grid(22, 7)
+    for dev in ("cuda", "cpu"):
+        scene, _, _ = build_gt_scene(n_views=3, W=160, H=120)
+        t0 = time.perf_counter()
+        out[dev] = refine.refine_mesh(
+            scene, mesh_from_numpy(v0, gt.faces),
+            RefineOptions(scales=2, iters=8, max_face_area=64), device=dev).vertices
+        secs[dev] = time.perf_counter() - t0
+    tree = cKDTree(gt.vertices)
+
+    def rms(v):
+        d, _ = tree.query(v, k=1)
+        return float(np.sqrt((d ** 2).mean()))
+    return (abs(rms(out["cuda"]) - rms(out["cpu"])),
+            float(np.abs(out["cuda"] - out["cpu"]).max()), secs)
+
+
+def phase_refine(card, scene):
+    """Mesh refinement on the card: the full-size workload through
+    refine_mesh, one full-scale iteration timed and one refresh block
+    profiled, and the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import refine
+    from openmvs_tpu_torch.config import RefineOptions
+    from openmvs_tpu_torch.convert import mesh_from_numpy
+
+    from openmvs_tpu_torch import native
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    native.build()   # the host rasterizer (g++), outside the timed call
+    build_s = time.perf_counter() - t0
+    gt, v0 = _noisy_grid(150, 11)
+    err0 = _height_error(v0)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = refine.refine_mesh(scene, mesh_from_numpy(v0, gt.faces), RefineOptions(),
+                             device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    err1 = _height_error(out.vertices)
+
+    fs = _FullScale(scene, v0, gt.faces)
+    pds, mt, (step0, med, reg_w, ratio), _ = fs.on(dev)
+    iter_ms = cuda_ms(lambda: refine._device_iter(
+        mt.verts, 0, pds, mt.adj, mt.deg, mt.faces, step0, med, reg_w,
+        mt.boundary, ratio), 5)
+    prof = _profile_refresh(fs, dev)
+    e_card, g_card = refine._energy_grad(mt.verts, pds, mt.adj, mt.deg, mt.faces,
+                                         step0, med, reg_w, mt.boundary, ratio)
+    pds_c, mt_c, sc_c, _ = fs.on(torch.device("cpu"))
+    e_cpu, g_cpu = refine._energy_grad(mt_c.verts, pds_c, mt_c.adj, mt_c.deg, mt_c.faces,
+                                       *sc_c[:3], mt_c.boundary, sc_c[3])
+    g_card, g_cpu = g_card.cpu().numpy(), g_cpu.numpy()
+    g_atol = 1e-6 * float(np.abs(g_cpu).max())
+    g_fail = int((np.abs(g_card - g_cpu) > 1e-4 * np.abs(g_cpu) + g_atol).sum())
+    rms_diff, worst, small_s = _refine_card_vs_cpu()
+    rec = {"phase": "refine", "views": len(scene.images), "H": 480, "W": 640,
+           "faces": len(gt.faces), "vertices": len(v0), "options": "RefineOptions()",
+           "wall_s": wall, "scales": stats["scales"], "pairs": stats["pairs"],
+           "iterations": sum(s["iters"] for s in stats["scales"]),
+           "refreshes": sum(s["refreshes"] for s in stats["scales"]),
+           "host_s": stats["host_s"], "rasterizer_build_s": build_s,
+           "max_memory_allocated_bytes": peak,
+           "height_error_before": err0, "height_error_after": err1,
+           "jax_height_error_after": JAX_REFINE_HEIGHT_ERROR,
+           "full_scale_faces": len(fs.faces), "full_scale_pairs": len(fs.pairs),
+           "full_scale_host_s": fs.host_s,
+           "device_iter_ms": iter_ms, "profile_refresh_block": prof,
+           "energy_grad_card_vs_cpu": {
+               "energy": [float(e_card), float(e_cpu)],
+               "max_abs_diff": float(np.abs(g_card - g_cpu).max()),
+               "max_abs": float(np.abs(g_cpu).max()),
+               "bit_equal_share": float((g_card == g_cpu).mean()),
+               "outside_rtol_1e-4_atol_1e-6_max": g_fail},
+           "small_case_card_vs_cpu": {"rms_diff": rms_diff, "max_vertex_diff": worst,
+                                      "seconds": small_s},
+           "card": card}
+    emit(rec)
+    if not np.isfinite(np.asarray(out.vertices)).all():
+        raise RuntimeError("refine produced non-finite vertices")
+    if err1 > 0.85 * err0:
+        raise RuntimeError(f"refine recovered too little: height error {err0} -> {err1}")
+    if err1 > 1.05 * JAX_REFINE_HEIGHT_ERROR:
+        raise RuntimeError(f"height error {err1} above 1.05x the JAX package's "
+                           f"{JAX_REFINE_HEIGHT_ERROR}")
+    if g_fail:
+        raise RuntimeError(f"_energy_grad: {g_fail} elements differ between card and CPU "
+                           "beyond rtol 1e-4, atol 1e-6 max|g|")
+    if rms_diff >= 1e-4 or worst >= 5e-3:
+        raise RuntimeError(f"refine_mesh card vs CPU: rms difference {rms_diff}, "
+                           f"largest vertex difference {worst}")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -1012,6 +1264,7 @@ def main():
     launches["geom_split"] = phase_geom_split(card, scene, gts, maps,
                                               launches["densify"])
     phase_geom_unfused(card, phase_parity(card))
+    phase_refine(card, scene)
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

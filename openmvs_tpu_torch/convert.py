@@ -1,10 +1,10 @@
 """Carrying state across from the JAX package.
 
-The system has no weights: what crosses is the scene and the packed
-per-view PatchMatch state. These functions take plain numpy arrays (what
-``np.asarray`` gives for the JAX package's ``PMData``/``PMState`` fields,
-or the arrays a JAX-package ``Scene`` holds) and build the port's objects,
-so both packages can compute on identical inputs.
+The system has no weights: what crosses is the scene, the mesh and the
+packed per-view PatchMatch state. These functions take plain numpy arrays
+(what ``np.asarray`` gives for the JAX package's ``PMData``/``PMState``
+fields, or the arrays a JAX-package ``Scene`` or ``Mesh`` holds) and build
+the port's objects, so both packages can compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from openmvs_tpu_torch.geometry.camera import Camera
 from openmvs_tpu_torch.io.mvs import ImageMeta
-from openmvs_tpu_torch.scene import PointCloud, Scene, SceneImage
+from openmvs_tpu_torch.scene import Mesh, PointCloud, Scene, SceneImage
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -75,3 +75,17 @@ def scene_from_arrays(
     scene.pointcloud = PointCloud(points=np.asarray(points, np.float32),
                                   views=views, weights=weights)
     return scene
+
+
+def mesh_from_numpy(vertices: np.ndarray, faces: np.ndarray) -> Mesh:
+    """Port ``Mesh`` from (nv, 3) vertices and (nf, 3) vertex-index faces
+    (copied, as float32 and int32)."""
+    return Mesh(vertices=np.array(vertices, np.float32, order="C"),
+                faces=np.array(faces, np.int32, order="C"))
+
+
+def mesh_to_numpy(mesh: Mesh):
+    """(vertices, faces) of a port ``Mesh`` as float32 / int32 copies, the
+    arrays a JAX-package ``Mesh`` is built from."""
+    return (np.array(mesh.vertices, np.float32, order="C"),
+            np.array(mesh.faces, np.int32, order="C"))

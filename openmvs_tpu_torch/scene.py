@@ -1,9 +1,10 @@
-"""In-memory scene: posed images and a sparse point cloud.
+"""In-memory scene: posed images, a sparse point cloud and a mesh.
 
 Counterpart of the data classes of ``openmvs_tpu/scene.py`` (``SceneImage``,
-``PointCloud``, ``Scene``) restricted to what densify reads. Images hold
-their working-resolution pixels (``gray``, optional ``color``/``mask``);
-loading images or ``.mvs`` files from disk is not ported yet.
+``PointCloud``, ``Mesh``, ``Scene``) restricted to what densify and refine
+read. Images hold their working-resolution pixels (``gray``, optional
+``color``/``mask``); loading images or ``.mvs`` files from disk, and saving
+a mesh as PLY, are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,12 +75,35 @@ class PointCloud:
         return len(self.colors) == len(self.points) and len(self.points) > 0
 
 
+@dataclass
+class Mesh:
+    vertices: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.float32))
+    faces: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.int32))
+    # texturing results
+    face_tex_coords: Optional[np.ndarray] = None  # (nf, 3, 2) float32, uv in [0,1]
+    texture: Optional[np.ndarray] = None          # (th, tw, 3) uint8 (page 0)
+    textures: Optional[list] = None               # all atlas pages (multi-page)
+    face_page: Optional[np.ndarray] = None        # (nf,) int32 page per face
+
+    def __len__(self):
+        return len(self.faces)
+
+    @property
+    def has_texture(self) -> bool:
+        return self.texture is not None and self.face_tex_coords is not None
+
+    def save_ply(self, path: str):
+        raise NotImplementedError("PLY output is not ported yet (io/ply)")
+
+
 class Scene:
-    """Posed images + sparse point cloud (+ optional region of interest)."""
+    """Posed images + sparse point cloud + mesh (+ optional region of
+    interest)."""
 
     def __init__(self):
         self.images: List[SceneImage] = []
         self.pointcloud = PointCloud()
+        self.mesh = Mesh()
         self.obb_rot = np.zeros((3, 3))
         self.obb_min = np.zeros(3)
         self.obb_max = np.zeros(3)

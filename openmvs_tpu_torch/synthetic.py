@@ -7,7 +7,9 @@ row of fronto-parallel cameras, and a 600-point sparse cloud sampled from
 the height field's grid vertices with the same seeded generator. Where the
 harness rasterizes a 96x96 triangulation of the field, this module
 ray-marches the analytic surface per pixel, so its images and ground-truth
-depths are those of the smooth surface itself.
+depths are those of the smooth surface itself. ``height_field_mesh`` is
+that triangulation (the harness's ``gt_mesh``), the mesh refinement starts
+from.
 """
 
 from __future__ import annotations
@@ -18,12 +20,28 @@ import numpy as np
 from scipy.ndimage import gaussian_filter
 
 from openmvs_tpu_torch.convert import scene_from_arrays
-from openmvs_tpu_torch.scene import Scene
+from openmvs_tpu_torch.scene import Mesh, Scene
 
 
 def height(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     return (6.0 + 0.6 * np.sin(x * 1.3) * np.cos(y * 1.7)
             + 0.3 * np.sin(2.9 * x + 1.0) * np.sin(2.3 * y))
+
+
+def height_field_mesh(grid: int = 96) -> Mesh:
+    """The height field triangulated over a grid x grid lattice on
+    [-3, 3]^2: row-major vertices with z = ``height(x, y)``, two faces per
+    cell, in the vertex and face order of the quality harness's
+    ``gt_mesh`` (scripts/quality_harness.py:77-85)."""
+    g = np.linspace(-3, 3, grid)
+    xx, yy = np.meshgrid(g, g)
+    verts = np.stack([xx, yy, height(xx, yy)], -1).reshape(-1, 3)
+    i = (np.arange(grid - 1)[:, None] * grid
+         + np.arange(grid - 1)[None, :]).reshape(-1)
+    faces = np.stack([np.stack([i, i + 1, i + grid], -1),
+                      np.stack([i + 1, i + grid + 1, i + grid], -1)], 1)
+    return Mesh(vertices=verts.astype(np.float32),
+                faces=faces.reshape(-1, 3).astype(np.int32))
 
 
 def texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
