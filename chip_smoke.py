@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PatchMatch densify and mesh refinement paths on
-one NVIDIA GPU.
+"""Drive the PyTorch port's PatchMatch densify, mesh refinement and mesh
+texturing paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,6 +52,26 @@ Phases, each printing one JSON line:
                   full-scale refresh block; card against CPU on the tests'
                   small case and for one full-scale _energy_grad. Plain
                   PyTorch: the JAX package reaches no Pallas kernel here
+ 11. texture    - texture.texture_mesh(scene, mesh, TextureOptions()) with
+                  LBP labeling on the card, for the same scene (with its
+                  colors, which only this phase reads) and the height
+                  field's 320-grid (203,522 faces): seconds per stage
+                  (qualities, outliers, adjacency, labeling, generate,
+                  global and local leveling, sharpen) and per call, the
+                  unseen share and whether the MRF was restricted, patches,
+                  pages, atlas size, peak memory, the faces' size in pixels
+                  per view; CUDA-event ms of label_faces_lbp and of its
+                  message schedule alone, its launches and device-busy
+                  share under torch.profiler; the same record for the
+                  150-grid (44,402 faces of several pixels each). Holds:
+                  the card's labels equal the CPU's for the same
+                  qualities, and texture_mesh on the card equals it on the
+                  CPU (labels and texcoords equal, texels within 1 and at
+                  least 99.9% equal); the color fidelity (per face, the
+                  mean |atlas - source| color at the centroid) has a median
+                  at most 1.02x the JAX package's and a share of faces
+                  within 5 at least 0.98x the JAX package's. Plain PyTorch:
+                  no Pallas kernel here either
 Each of phases 4, 5, 7 and 9 sets the launch counts to 0 just before the
 path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
@@ -85,6 +105,19 @@ JAX_COMPLETENESS = [0.963409963432761, 0.9450504042475226, 0.9660440752877728,
 #   JAX_PLATFORMS=cpu python tests/_torch_refine_quality.py --height 480 --width 640
 # (0.039844 before refinement; 53.7 s on the CPU)
 JAX_REFINE_HEIGHT_ERROR = 0.010049285568380237
+
+# Median over the labelled faces of the mean |atlas color - source color| at
+# the face's centroid in its labelled view (_color_fidelity) that the JAX
+# package's texture_mesh reaches on phase texture's workload (5 views at
+# 640x480 with colors, the 320-grid of 203,522 faces, TextureOptions()),
+# CPU, measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_texture_quality.py --height 480 --width 640
+# (14.9% of faces unseen, one 4096x2048 page; 9.44 s on the CPU), and the
+# share of the labelled faces whose mean difference is at most
+# FIDELITY_BOUND, from the same run
+JAX_TEXTURE_FIDELITY = 1.6666666666666667
+FIDELITY_BOUND = 5
+JAX_TEXTURE_WITHIN = 0.9692992586091415
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -841,6 +874,29 @@ def _union_us(intervals):
     return total
 
 
+def _device_summary(prof, top_n):
+    """The CUDA events of a torch.profiler run: their count, kernel
+    launches (events less copies and sets), copies, device-busy seconds
+    (the union of their spans) and the ``top_n`` names by total time."""
+    from torch.autograd import DeviceType
+
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in dev_events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    copies = sum(cnt for name, (_, cnt) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    busy_s = _union_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_events]) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"events": len(dev_events), "launches": len(dev_events) - copies,
+            "copies": copies, "busy_s": busy_s,
+            "top": [{"name": name[:160], "total_ms": tot / 1e3, "count": cnt,
+                     "share_of_busy": tot / 1e6 / busy_s}
+                    for name, (tot, cnt) in top] if busy_s else []}
+
+
 def phase_profile(card, scene):
     """One view's photometric estimate_depth_map (view 0, 480x640, the
     3-level pyramid) under torch.profiler with CUDA activity, after one
@@ -849,7 +905,6 @@ def phase_profile(card, scene):
     kernels (the unprofiled wall less the device-busy time, over the sweeps
     run). Reads the view selection phase densify made."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from openmvs_tpu_torch import densify
@@ -879,27 +934,17 @@ def phase_profile(card, scene):
             wall_profiled = run()
     finally:
         patchmatch._sweep_parity = sweep_parity
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in dev_events:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    copies = sum(cnt for name, (_, cnt) in by_name.items()
-                 if name.startswith(("Memcpy", "Memset")))
-    busy_s = _union_us([(e.time_range.start, e.time_range.end)
-                        for e in dev_events]) / 1e6
+    dev = _device_summary(prof, 10)
+    busy_s = dev["busy_s"]
     rec = {"phase": "profile", "view": 0, "H": 480, "W": 640,
            "wall_s": wall, "wall_profiled_s": wall_profiled, "sweeps": sweeps,
-           "profiler_device_events": len(dev_events),
+           "profiler_device_events": dev["events"],
            "device_busy_s": busy_s,
            "device_busy_share_of_profiled": busy_s / wall_profiled,
            "device_busy_share": min(busy_s / wall, 1.0),
-           "kernel_launches": len(dev_events) - copies, "copies": copies,
+           "kernel_launches": dev["launches"], "copies": dev["copies"],
            "host_s_per_sweep_outside_kernels": (wall - busy_s) / sweeps,
-           "top10_kernels": [{"name": name[:160], "total_ms": tot / 1e3,
-                              "count": cnt, "share_of_busy": tot / 1e6 / busy_s}
-                             for name, (tot, cnt) in top] if busy_s else [],
+           "top10_kernels": dev["top"],
            "card": card}
     emit(rec)
     return rec
@@ -1084,8 +1129,6 @@ def _profile_refresh(fs, dev):
     rasterize, upload, 8 iterations, the energy read), once unprofiled and
     once under torch.profiler: launches per iteration, device-busy share
     of the unprofiled wall, the top 10 device kernels."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from openmvs_tpu_torch import refine
@@ -1107,24 +1150,13 @@ def _profile_refresh(fs, dev):
     wall = block()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_profiled = block()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in dev_events:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    copies = sum(cnt for name, (_, cnt) in by_name.items()
-                 if name.startswith(("Memcpy", "Memset")))
-    busy_s = _union_us([(e.time_range.start, e.time_range.end)
-                        for e in dev_events]) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    dev = _device_summary(prof, 10)
     return {"block_wall_s": wall, "block_wall_profiled_s": wall_profiled,
             "iterations": refine.RERASTER,
-            "kernel_launches_per_iteration": (len(dev_events) - copies) / refine.RERASTER,
-            "copies": copies, "device_busy_s": busy_s,
-            "device_busy_share": min(busy_s / wall, 1.0),
-            "top10_kernels": [{"name": name[:160], "total_ms": tot / 1e3, "count": cnt,
-                               "share_of_busy": tot / 1e6 / busy_s}
-                              for name, (tot, cnt) in top] if busy_s else []}
+            "kernel_launches_per_iteration": dev["launches"] / refine.RERASTER,
+            "copies": dev["copies"], "device_busy_s": dev["busy_s"],
+            "device_busy_share": min(dev["busy_s"] / wall, 1.0),
+            "top10_kernels": dev["top"]}
 
 
 def _refine_card_vs_cpu():
@@ -1240,6 +1272,245 @@ def phase_refine(card, scene):
                            f"largest vertex difference {worst}")
 
 
+def _color_fidelity(mesh, labels, images):
+    """Per labelled face, the mean |atlas color - source color| (over RGB)
+    at the face's centroid: the atlas texel under the mean of its
+    texcoords, on its page, against the pixel of its labelled view under
+    the projected centroid (tests/test_texture.py:82-103, there for every
+    7th face and view 0). Returns the median over the faces and the share
+    of faces within FIDELITY_BOUND. Duck-typed, so it reads either
+    package's textured mesh and images."""
+    import numpy as np
+
+    from openmvs_tpu_torch.texture import _project
+
+    nf = len(mesh.faces)
+    pages = mesh.textures if mesh.textures is not None else [mesh.texture]
+    page = (np.asarray(mesh.face_page) if mesh.face_page is not None
+            else np.zeros(nf, np.int64))
+    fi = np.nonzero(np.asarray(labels) >= 0)[0]
+    tc = np.asarray(mesh.face_tex_coords)[fi].mean(axis=1)
+    cen = np.asarray(mesh.vertices)[np.asarray(mesh.faces)[fi]].mean(axis=1)
+    atlas_col = np.zeros((len(fi), 3))
+    img_col = np.zeros((len(fi), 3))
+    for pg, tex in enumerate(pages):
+        sel = page[fi] == pg
+        th, tw = tex.shape[:2]
+        tx = np.clip((tc[sel, 0] * tw).astype(np.int64), 0, tw - 1)
+        ty = np.clip(((1 - tc[sel, 1]) * th).astype(np.int64), 0, th - 1)
+        atlas_col[sel] = tex[ty, tx]
+    lab = np.asarray(labels)[fi]
+    for v in np.unique(lab):
+        sel = lab == v
+        img = images[int(v)]
+        h, w = img.color.shape[:2]
+        pr = _project(img.working_camera(), cen[sel])
+        pu = np.clip(pr[:, 0].astype(np.int64), 0, w - 1)
+        pv = np.clip(pr[:, 1].astype(np.int64), 0, h - 1)
+        img_col[sel] = img.color[pv, pu]
+    err = np.abs(atlas_col - img_col).mean(axis=1)
+    return float(np.median(err)), float((err <= FIDELITY_BOUND).mean())
+
+
+def _face_pixels(scene, mesh):
+    """How large the mesh's faces are in the views: the pixel centres the
+    rasterizer gives each (face, view) (what compute_face_qualities sums the
+    gradient over), and the projected area in pixels of each (face, view)
+    whose corners all lie in front of the camera and inside the image,
+    occluded or not."""
+    import numpy as np
+
+    from openmvs_tpu_torch import native
+    from openmvs_tpu_torch.texture import _project
+
+    nf = len(mesh.faces)
+    counts = np.zeros((nf, len(scene.images)), np.int64)
+    areas = []
+    for vi, img in enumerate(scene.images):
+        H, W = img.gray.shape
+        proj = _project(img.working_camera(), mesh.vertices.astype(np.float64))
+        fid, _, _ = native.rasterize(proj, mesh.faces, H, W, want_bary=False)
+        counts[:, vi] = np.bincount(fid[fid >= 0].astype(np.int64), minlength=nf)
+        t = proj[mesh.faces]
+        inside = ((t[..., 2] > 0) & (t[..., 0] >= -0.5) & (t[..., 0] <= W - 0.5)
+                  & (t[..., 1] >= -0.5) & (t[..., 1] <= H - 0.5)).all(axis=1)
+        d1, d2 = t[inside, 1, :2] - t[inside, 0, :2], t[inside, 2, :2] - t[inside, 0, :2]
+        areas.append(0.5 * np.abs(d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]))
+    area = np.concatenate(areas)
+    seen = counts > 0
+    best = counts.max(axis=1)
+    return {"projected_area_px": {q: float(np.percentile(area, int(q[1:])))
+                                  for q in ("p10", "p50", "p90")},
+            "pixels_per_seen_face_view": {"mean": float(counts[seen].mean()),
+                                          "p50": float(np.median(counts[seen]))},
+            "pixels_in_best_view_p50": float(np.median(best)),
+            "faces_with_at_most_1_pixel_in_best_view": float((best <= 1).mean()),
+            "faces_without_a_pixel": float((best == 0).mean())}
+
+
+def _profile_lbp(quality, adj, lam, iters):
+    """label_faces_lbp on the card once unprofiled and once under
+    torch.profiler (after a warm-up call): kernel launches in all and per
+    iteration, copies, device-busy share of the unprofiled wall, the top 5
+    device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmvs_tpu_torch import texture
+
+    def call():
+        t0 = time.perf_counter()
+        texture.label_faces_lbp(quality, adj, lam, iters=iters, device="cuda")
+        return time.perf_counter() - t0
+
+    call()
+    wall = call()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_profiled = call()
+    dev = _device_summary(prof, 5)
+    return {"wall_s": wall, "wall_profiled_s": wall_profiled,
+            "kernel_launches": dev["launches"],
+            "kernel_launches_per_iteration": dev["launches"] / iters,
+            "copies": dev["copies"], "device_busy_s": dev["busy_s"],
+            "device_busy_share": min(dev["busy_s"] / wall, 1.0),
+            "top5_kernels": dev["top"]}
+
+
+def _texture_run(scene, mesh, device):
+    """texture_mesh(scene, mesh, TextureOptions()) on ``device``: the
+    textured mesh, its stats, the call's seconds and peak device memory."""
+    import torch
+
+    from openmvs_tpu_torch import texture
+    from openmvs_tpu_torch.config import TextureOptions
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = texture.texture_mesh(scene, mesh, TextureOptions(), device=device, stats=stats)
+    wall = time.perf_counter() - t0
+    return out, stats, wall, torch.cuda.max_memory_allocated()
+
+
+def _texture_summary(out, stats, wall, peak, scene, mesh):
+    """The record of one _texture_run; fails on texcoords outside [0, 1] or
+    atlas pages that are not (h, w, 3) uint8."""
+    import numpy as np
+
+    stages = stats["stages_s"]
+    pages = out.textures if out.textures is not None else [out.texture]
+    fidelity, within = _color_fidelity(out, stats["labels"], scene.images)
+    tc = np.asarray(out.face_tex_coords)
+    if tc.shape != (len(mesh.faces), 3, 2) or not ((tc >= 0) & (tc <= 1)).all():
+        raise RuntimeError(f"texcoords of shape {tc.shape} or outside [0, 1]")
+    if any(p.dtype != np.uint8 or p.ndim != 3 or p.shape[2] != 3 for p in pages):
+        raise RuntimeError("atlas pages are not (h, w, 3) uint8")
+    return {"faces": len(mesh.faces), "vertices": len(mesh.vertices),
+            "wall_s": wall, "stages_s": stages,
+            "generate_patches_pack_copy_s": stages["generate"] - sum(
+                stages.get(k, 0.0) for k in ("global_leveling", "local_leveling", "sharpen")),
+            "unseen_share": stats["unseen_share"], "restricted_mrf": stats["restricted_mrf"],
+            "patches": stats["patches"], "pages": stats["pages"],
+            "atlas_wh": list(stats["atlas_wh"]), "max_memory_allocated_bytes": peak,
+            "face_pixels": _face_pixels(scene, mesh),
+            "color_fidelity": fidelity, f"faces_within_{FIDELITY_BOUND}": within}
+
+
+def phase_texture(card, scene):
+    """Texturing on the card: texture_mesh(scene, mesh, TextureOptions())
+    for the 5-view 640x480 scene with colors and the height field's 320-grid
+    (203,522 faces, above the 200k at which the JAX package labels on its
+    device), held to the same call on the CPU; then label_faces_lbp alone on
+    the same qualities, timed, profiled and held to its CPU labels; then
+    the 150-grid (44,402 faces, several pixels each), for the patch count
+    and the stages at faces larger than a pixel."""
+    import inspect
+
+    import numpy as np
+
+    from openmvs_tpu_torch import native, texture
+    from openmvs_tpu_torch.config import TextureOptions
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.synthetic import height_field_mesh
+    from openmvs_tpu_torch.utils import device as device_mod
+
+    iters = inspect.signature(texture.label_faces_lbp).parameters["iters"].default
+    native.build()
+    mesh = height_field_mesh(320)
+    out, stats, wall, peak = _texture_run(scene, mesh, "cuda")
+    main = _texture_summary(out, stats, wall, peak, scene, mesh)
+    # the same call with the labeling on the CPU: all else is host code
+    cout, cstats, cwall, _ = _texture_run(scene, mesh, "cpu")
+    pages = out.textures if out.textures is not None else [out.texture]
+    cpages = cout.textures if cout.textures is not None else [cout.texture]
+    same_shapes = [p.shape for p in pages] == [p.shape for p in cpages]
+    diffs = [np.abs(p.astype(np.int16) - q.astype(np.int16))
+             for p, q in zip(pages, cpages)] if same_shapes else []
+    vs_cpu = {"wall_s": cwall, "labels_equal": bool(np.array_equal(stats["labels"],
+                                                                   cstats["labels"])),
+              "texcoords_equal": bool(np.array_equal(out.face_tex_coords,
+                                                     cout.face_tex_coords)),
+              "atlas_shapes_equal": same_shapes,
+              "texel_equal_share": float(np.mean([(d == 0).mean() for d in diffs]))
+              if diffs else None,
+              "texel_max_abs_diff": int(max(d.max() for d in diffs)) if diffs else None}
+
+    # the labeling alone, on the qualities texture_mesh computed
+    opts = TextureOptions()
+    max_dim = imio.compute_max_resolution(
+        max(im.width for im in scene.images), max(im.height for im in scene.images),
+        opts.resolution_level, opts.min_resolution, 1 << 30)
+    q, fc = texture.compute_face_qualities(scene, mesh, max_dim)
+    q = texture.remove_outlier_views(q, fc, opts.outlier_threshold)
+    adj = texture._face_adjacency(mesh.faces)
+    lam = opts.ratio_data_smoothness * 10
+    t0 = time.perf_counter()
+    lab_cpu = texture.label_faces_lbp(q, adj, lam, iters=iters, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    lab_card = texture.label_faces_lbp(q, adj, lam, iters=iters, device="cuda")
+    lbp_ms = cuda_ms(lambda: texture.label_faces_lbp(q, adj, lam, iters=iters,
+                                                     device="cuda"), 5)
+    # the message schedule alone, its inputs already built on the host
+    qmax = q.max(axis=1, keepdims=True)
+    data = np.where(q > 0, 1.0 - q / np.maximum(qmax, 1e-12), 4.0).astype(np.float32)
+    lam_k = np.full((len(q), 3), np.float32(lam), np.float32)
+    _, rev, valid = texture._rev_slots(adj)
+    dev = device_mod.resolve("cuda")
+    schedule_ms = cuda_ms(lambda: texture._lbp_schedule(data, adj, lam_k, rev, valid,
+                                                        iters, dev), 5)
+    prof = _profile_lbp(q, adj, lam, iters)
+
+    small = height_field_mesh(150)
+    grid150 = _texture_summary(*_texture_run(scene, small, "cuda"), scene, small)
+    H, W = scene.images[0].gray.shape
+    rec = {"phase": "texture", "views": len(scene.images), "H": H, "W": W,
+           "options": "TextureOptions()", **main,
+           "jax_color_fidelity": JAX_TEXTURE_FIDELITY,
+           f"jax_faces_within_{FIDELITY_BOUND}": JAX_TEXTURE_WITHIN,
+           "cpu_texture_mesh": vs_cpu, "lbp_iters": iters,
+           "lbp_ms": lbp_ms, "lbp_schedule_ms": schedule_ms, "lbp_cpu_s": cpu_s,
+           "lbp_profile": prof,
+           "labels_card_equal_cpu": bool(np.array_equal(lab_card, lab_cpu)),
+           "labels_card_equal_texture_mesh": bool(np.array_equal(lab_card, stats["labels"])),
+           "grid150": grid150, "card": card}
+    emit(rec)
+    if not rec["labels_card_equal_cpu"]:
+        raise RuntimeError(f"LBP labels differ between card and CPU on "
+                           f"{int((lab_card != lab_cpu).sum())} faces")
+    if not rec["labels_card_equal_texture_mesh"]:
+        raise RuntimeError("label_faces_lbp and texture_mesh labelled differently")
+    if not (vs_cpu["labels_equal"] and vs_cpu["texcoords_equal"] and same_shapes
+            and vs_cpu["texel_equal_share"] >= 0.999 and vs_cpu["texel_max_abs_diff"] <= 1):
+        raise RuntimeError(f"texture_mesh on the card differs from the CPU: {vs_cpu}")
+    if not main["color_fidelity"] <= 1.02 * JAX_TEXTURE_FIDELITY:
+        raise RuntimeError(f"color fidelity {main['color_fidelity']} above 1.02x the "
+                           f"JAX package's {JAX_TEXTURE_FIDELITY}")
+    within = main[f"faces_within_{FIDELITY_BOUND}"]
+    if not within >= 0.98 * JAX_TEXTURE_WITHIN:
+        raise RuntimeError(f"{within} of faces within {FIDELITY_BOUND} of their source "
+                           f"color, below 0.98x the JAX package's {JAX_TEXTURE_WITHIN}")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -1252,11 +1523,15 @@ def main():
         os.environ.pop(k, None)
     card = phase_device()
     phase_build()
+    from openmvs_tpu_torch.convert import scene_from_arrays
     from openmvs_tpu_torch.synthetic import build_gt_scene
 
     t0 = time.perf_counter()
-    scene, gts, _ = build_gt_scene(n_views=5, W=640, H=480)
+    colored, gts, arrays = build_gt_scene(n_views=5, W=640, H=480, color=True)
     t_scene = time.perf_counter() - t0
+    # every phase but texture reads the gray images alone, as before
+    # texturing came: with colors, densify's fusion would color its points
+    scene = scene_from_arrays(**dict(arrays, colors=None))
     rows = phase_kernels(card, scene, gts)
     launches = {"variants": phase_variants(card)}
     launches["densify"], maps = phase_densify(card, scene, gts, t_scene)
@@ -1265,6 +1540,7 @@ def main():
                                               launches["densify"])
     phase_geom_unfused(card, phase_parity(card))
     phase_refine(card, scene)
+    phase_texture(card, colored)
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

@@ -55,9 +55,12 @@ def scene_from_arrays(
     point_weights: Optional[Sequence[np.ndarray]] = None,
     ids: Optional[Sequence[int]] = None,
     names: Optional[Sequence[str]] = None,
+    colors: Optional[Sequence[np.ndarray]] = None,
 ) -> Scene:
     """Port ``Scene`` from per-image gray pixels and cameras (K, R, C at the
-    gray image's resolution) plus the sparse cloud and its view lists."""
+    gray image's resolution) plus the sparse cloud and its view lists;
+    ``colors``, if given, are the (h, w, 3) uint8 RGB pixels of each image
+    (texturing reads them)."""
     scene = Scene()
     n = len(grays)
     ids = list(range(n)) if ids is None else list(ids)
@@ -66,9 +69,15 @@ def scene_from_arrays(
         meta = ImageMeta(name=names[i] if names else f"view{ids[i]:04d}",
                          platform_id=i, id=int(ids[i]))
         h, w = gray.shape
+        color = None
+        if colors is not None:
+            color = np.asarray(colors[i], np.uint8)
+            if color.shape != (h, w, 3):
+                raise ValueError(f"image {i}: color {color.shape} does not "
+                                 f"match gray {gray.shape}")
         scene.images.append(SceneImage(
             meta=meta, camera=Camera(Ks[i], Rs[i], Cs[i]), width=w,
-            height=h, gray=gray))
+            height=h, gray=gray, color=color))
     views = [np.asarray(v, np.uint32) for v in point_views]
     weights = (list(point_weights) if point_weights is not None
                else [np.ones(len(v), np.float32) for v in views])

@@ -1,9 +1,13 @@
-"""Image resampling and the working-resolution policy (host side, numpy).
+"""Image resampling, filters and the working-resolution policy (host side,
+numpy and scipy).
 
 Counterpart of ``openmvs_tpu/io/images.py:97-117`` without OpenCV:
 ``resize_area`` reproduces ``cv2.resize(..., interpolation=cv2.INTER_AREA)``
 for downscaling (the reference's area filter), an exact block mean for
-integer factors and fractional area weights otherwise.
+integer factors and fractional area weights otherwise. ``box_blur`` and
+``gaussian_blur`` stand for ``cv2.blur`` and ``cv2.GaussianBlur`` on
+float32 images (texturing's seam leveling and sharpening), with OpenCV's
+default border (BORDER_REFLECT_101, scipy's ``mirror``).
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+from scipy import ndimage
 
 
 def _area_weights(ssize: int, dsize: int) -> np.ndarray:
@@ -73,3 +78,34 @@ def compute_max_resolution(width: int, height: int, level: int, min_res: int, ma
     if max_res > 0 and scaled > max_res:
         scaled = max_res
     return scaled
+
+
+def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """Normalized ``ksize`` x ``ksize`` box filter of a float32 (h, w) or
+    (h, w, c) image, channels apart (``cv2.blur(img, (ksize, ksize))``;
+    both sum in float64)."""
+    size = (ksize, ksize) + (1,) * (img.ndim - 2)
+    return ndimage.uniform_filter(img, size=size, mode="mirror")
+
+
+def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    """(ksize,) float64 Gaussian taps as ``cv2.getGaussianKernel`` builds
+    them: exp(-x^2 / (2 sigma^2)) summed in order, then scaled by the
+    reciprocal of the sum."""
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    t = np.exp((-0.5 / (sigma * sigma)) * x * x)
+    total = 0.0
+    for v in t.tolist():
+        total += v
+    return t * (1.0 / total)
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable Gaussian blur of a float32 (h, w) or (h, w, c) image over
+    its two image axes (``cv2.GaussianBlur(img, (0, 0), sigma)``): OpenCV's
+    kernel size for float images, round(8 sigma + 1) made odd, and its taps
+    in float32, rows then columns."""
+    ksize = int(np.floor(sigma * 8 + 1 + 0.5)) | 1
+    k = gaussian_kernel(ksize, sigma).astype(np.float32)
+    out = ndimage.correlate1d(img, k, axis=0, mode="mirror")
+    return ndimage.correlate1d(out, k, axis=1, mode="mirror")

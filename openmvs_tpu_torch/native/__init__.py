@@ -5,7 +5,8 @@ built with the same ``g++`` flags (``openmvs_tpu/native/__init__.py``), so
 both libraries compile the same arithmetic on one machine and rasterize
 to the bit alike. It is host code, as in the JAX package: refinement
 rasterizes the mesh into each view on the CPU and uploads the face-id and
-barycentric maps.
+barycentric maps; texturing rasterizes it for face visibility and, in
+global seam leveling, rasterizes the color offsets into the atlas.
 
 The library is built on the first call (never at import) into
 ``openmvs_tpu_torch/_build/native/<tag>/``; the tag hashes the source, the
@@ -78,11 +79,12 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def rasterize(proj: np.ndarray, faces: np.ndarray, H: int, W: int):
+def rasterize(proj: np.ndarray, faces: np.ndarray, H: int, W: int,
+              want_bary: bool = True):
     """Z-buffer rasterization of projected vertices (u, v, camera-depth).
 
     Returns (face_id (H,W) int32 with -1 empty, depth (H,W) f32,
-    bary (H,W,3) f32 perspective-correct)."""
+    bary (H,W,3) f32 perspective-correct or None)."""
     proj = np.ascontiguousarray(proj, np.float64)
     faces = np.ascontiguousarray(faces, np.int32)
     if proj.ndim != 2 or proj.shape[1] != 3 or faces.ndim != 2 or faces.shape[1] != 3:
@@ -98,4 +100,4 @@ def rasterize(proj: np.ndarray, faces: np.ndarray, H: int, W: int):
                             face_id, depth, bary)
     if rc != 0:
         raise RuntimeError(f"omvs_rasterize failed (rc={rc})")
-    return face_id, depth, bary
+    return face_id, depth, (bary if want_bary else None)

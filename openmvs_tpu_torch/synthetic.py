@@ -52,6 +52,13 @@ def texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     return np.clip(t, 0.02, 0.98)
 
 
+def albedo(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """(..., 3) RGB albedo in [0.02, 0.98]: ``texture`` shifted by a
+    different phase per channel, so the channels differ but keep its
+    detail."""
+    return np.stack([texture(x + 0.37 * c, y - 0.23 * c) for c in range(3)], -1)
+
+
 def camera_intrinsics(W: int, H: int) -> np.ndarray:
     return np.array([[0.9 * W, 0, W / 2 - 0.5], [0, 0.9 * W, H / 2 - 0.5],
                      [0, 0, 1.0]])
@@ -99,25 +106,34 @@ def ray_march(K: np.ndarray, C: np.ndarray, W: int, H: int,
 
 
 def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
-                   grid: int = 96, seed: int = 0
+                   grid: int = 96, seed: int = 0, color: bool = False
                    ) -> Tuple[Scene, List[np.ndarray], dict]:
     """(scene, gt_depths, arrays): the port's Scene, per-view float32
     ground-truth depth maps (0 where a ray misses the surface), and the
     arrays the scene was built from (for ``scene_from_arrays`` on either
-    package)."""
+    package). Each view has a gray image (``texture`` at the surface point,
+    smoothed by a sigma-0.5 Gaussian). With ``color``, each also has an
+    (H, W, 3) uint8 color image (``albedo`` x 255, smoothed alike), in
+    ``arrays["colors"]`` and on the scene's images: texturing reads it, and
+    densify's fusion then colors its points. The gray does not depend on
+    it."""
     rng = np.random.default_rng(seed)
     g = np.linspace(-3, 3, grid)
     xx, yy = np.meshgrid(g, g)
     verts = np.stack([xx, yy, height(xx, yy)], -1).reshape(-1, 3)
 
     K = camera_intrinsics(W, H)
-    grays, gts, Cs = [], [], []
+    grays, colors, gts, Cs = [], [], [], []
     for i in range(n_views):
         C = camera_center(i)
         depth, xy = ray_march(K, C, W, H)
         gray = np.where(depth > 0, texture(xy[..., 0], xy[..., 1]), 0.0)
         grays.append(gaussian_filter(gray.astype(np.float32), 0.5,
                                      mode="mirror"))
+        if color:
+            rgb = np.where(depth[..., None] > 0, albedo(xy[..., 0], xy[..., 1]), 0.0)
+            rgb = gaussian_filter(rgb.astype(np.float32), (0.5, 0.5, 0), mode="mirror")
+            colors.append(np.clip(np.rint(rgb * 255), 0, 255).astype(np.uint8))
         gts.append(depth.astype(np.float32))
         Cs.append(C)
 
@@ -130,6 +146,8 @@ def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
         points=verts[sel].astype(np.float32),
         point_views=[np.arange(n_views, dtype=np.uint32)] * len(sel),
     )
+    if color:
+        arrays["colors"] = colors
     return scene_from_arrays(**arrays), gts, arrays
 
 

@@ -149,7 +149,8 @@ def equal_share(js, ps) -> float:
 
 
 def jax_scene(arrays):
-    """JAX-package Scene from the arrays ``synthetic.build_gt_scene`` returns."""
+    """JAX-package Scene from the arrays ``synthetic.build_gt_scene`` returns
+    (``colors``, where present, become each image's ``color``)."""
     from openmvs_tpu.geometry.camera import Camera
     from openmvs_tpu.io import mvs as mvsio
     from openmvs_tpu.scene import PointCloud, Scene, SceneImage
@@ -161,7 +162,9 @@ def jax_scene(arrays):
         scene.images.append(SceneImage(
             meta=meta, camera=Camera(arrays["Ks"][i], arrays["Rs"][i],
                                      arrays["Cs"][i]),
-            width=w, height=h, gray=np.asarray(gray, np.float32)))
+            width=w, height=h, gray=np.asarray(gray, np.float32),
+            color=(np.asarray(arrays["colors"][i], np.uint8)
+                   if arrays.get("colors") is not None else None)))
     views = [np.asarray(v, np.uint32) for v in arrays["point_views"]]
     scene.pointcloud = PointCloud(
         points=np.asarray(arrays["points"], np.float32), views=views,

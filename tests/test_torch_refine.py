@@ -87,6 +87,19 @@ def test_refine_options_equal_field_for_field():
             == [f.name for f in dataclasses.fields(JaxOptions)])
 
 
+def test_decay_equals_jax_float32_pow():
+    """The step decay 0.98^it: the port's correctly rounded float32 equals
+    the float32 pow of the JAX package's jitted iteration
+    (openmvs_tpu/refine.py:568) for it in 0..59, past the 25 iterations
+    of a default scale."""
+    from openmvs_tpu_torch.refine import _decay
+
+    decay = jax.jit(lambda it: 0.98 ** it.astype(jnp.float32))
+    for it in range(60):
+        want = np.float32(decay(jnp.int32(it)))
+        assert np.float32(_decay(it)) == want, it
+
+
 def test_refine_default_device_raises_without_a_card(case):
     from openmvs_tpu_torch.convert import mesh_from_numpy
     from openmvs_tpu_torch.refine import refine_mesh
