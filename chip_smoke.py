@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PatchMatch densify, mesh refinement and mesh
-texturing paths on one NVIDIA GPU.
+"""Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
+texturing and SGM densify paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -72,8 +72,24 @@ Phases, each printing one JSON line:
                   at most 1.02x the JAX package's and a share of faces
                   within 5 at least 0.98x the JAX package's. Plain PyTorch:
                   no Pallas kernel here either
-Each of phases 4, 5, 7 and 9 sets the launch counts to 0 just before the
-path it drives and reads them just after. Then the {"kernels": [...]} line
+ 12. sgm        - densify.dense_reconstruction(scene, DenseOptions(
+                  estimator="sgm")) on the card for phase densify's scene
+                  (5 views at 640x480, 8 directions, lc_blend, max_num_d
+                  256): depth maps/s for the call and for estimation alone
+                  (as bench.py's sgm_maps_per_s), seconds per pair and per
+                  level with (h, w, num_d), points, peak memory, depth
+                  accuracy/completeness per view held to 95% of the JAX
+                  package's; fusion_mode=-1 writes one .dimap per pair and
+                  -2 resumes to the same cloud (and, with the .dmap files
+                  gone, re-projects the .dimap files without matching: their
+                  1/4-pixel disparities give a smaller cloud, as in the JAX
+                  package); one
+                  full-width pair's disparities and costs on the card equal
+                  the CPU's; torch.profiler over that pair: launches per
+                  aggregate8 and the device-busy share. Plain PyTorch: the
+                  JAX SGM reaches no Pallas kernel
+Each of phases 4, 5, 7, 9 and 12 sets the launch counts to 0 just before
+the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -118,6 +134,16 @@ JAX_REFINE_HEIGHT_ERROR = 0.010049285568380237
 JAX_TEXTURE_FIDELITY = 1.6666666666666667
 FIDELITY_BOUND = 5
 JAX_TEXTURE_WITHIN = 0.9692992586091415
+
+# Per-view (accuracy, completeness) of the JAX package's SGM estimator on
+# phase densify's scene (480x640, 5 views, DenseOptions(estimator="sgm")),
+# CPU, measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_sgm_quality.py --height 480 --width 640
+# (232,524 points, 276 s on the CPU)
+JAX_SGM_ACCURACY = [0.9686011654148001, 0.9718663110707598, 0.9685157348825745,
+                    0.9669701818181818, 0.9606766451155788]
+JAX_SGM_COMPLETENESS = [0.672946626421426, 0.6835954250251437, 0.7375995443222334,
+                        0.6711149799707735, 0.668567880223546]
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -874,13 +900,16 @@ def _union_us(intervals):
     return total
 
 
-def _device_summary(prof, top_n):
+def _device_summary(prof, top_n, skip=()):
     """The CUDA events of a torch.profiler run: their count, kernel
     launches (events less copies and sets), copies, device-busy seconds
-    (the union of their spans) and the ``top_n`` names by total time."""
+    (the union of their spans) and the ``top_n`` names by total time.
+    ``skip`` names events to leave out: a record_function range also
+    appears on the device timeline, spanning the kernels it launched."""
     from torch.autograd import DeviceType
 
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.name not in skip]
     by_name = {}
     for e in dev_events:
         tot, cnt = by_name.get(e.name, (0.0, 0))
@@ -1511,6 +1540,206 @@ def phase_texture(card, scene):
                            f"color, below 0.98x the JAX package's {JAX_TEXTURE_WITHIN}")
 
 
+def _sgm_dense(scene, opts, folder, fusion_mode=0):
+    """dense_reconstruction(scene, opts, save_dmaps_to=folder) on the card
+    with the launch counts set to 0 just before and read just after, and
+    every match_pair_tsgm call recorded: (cloud, wall s, stage s, per-pair
+    records with their levels, launches)."""
+    import torch
+
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.ops import pm_kernel, sgm
+
+    pairs = []
+    match = sgm.match_pair_tsgm
+
+    def recorded(*a, **kw):
+        levels = []
+        t0 = time.perf_counter()
+        out = match(*a, stats=levels, **kw)
+        pairs.append({"seconds": time.perf_counter() - t0, "levels": levels})
+        return out
+
+    stage_log = _StageLog()
+    logger = logging.getLogger("omvs_torch.densify")
+    logger.addHandler(stage_log)
+    sgm.match_pair_tsgm = recorded
+    try:
+        pm_kernel.reset_launches()
+        t0 = time.perf_counter()
+        pc = densify.dense_reconstruction(scene, opts, save_dmaps_to=folder,
+                                          fusion_mode=fusion_mode, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pm_kernel.LAUNCHES)
+    finally:
+        sgm.match_pair_tsgm = match
+        logger.removeHandler(stage_log)
+    return pc, wall, stage_log.stages, pairs, launches
+
+
+def _sgm_pair(scene, view):
+    """(rectA, rectB, d_lo, d_hi) of view ``view`` and its best neighbour,
+    rectified and seeded as estimate_depth_map_sgm does."""
+    import numpy as np
+
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import sgm
+
+    img = scene.images[view]
+    nb = next(im for im in scene.images if im.meta.id == img.meta.view_scores[0].id)
+    camA, camB = img.working_camera(), nb.working_camera()
+    rectA, rectB, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
+    pts = np.asarray([scene.pointcloud.points[i]
+                      for i, v in enumerate(scene.pointcloud.views) if img.meta.id in v],
+                     np.float64).reshape(-1, 3)
+    d_lo, d_hi = densify._sgm_pair_range(pts, info, camA, camB,
+                                         DenseOptions(estimator="sgm"))
+    return rectA, rectB, d_lo, d_hi
+
+
+def _profile_sgm_pair(rectA, rectB, d_lo, d_hi):
+    """match_pair_tsgm of one pair on the card, once unprofiled and once
+    under torch.profiler with each aggregate8 call marked: the pair's
+    wall, device-busy share, launches and copies, and per aggregate8 call
+    the kernel launches (CUDA launch calls inside its range) and host ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from openmvs_tpu_torch.ops import sgm
+
+    def call():
+        t0 = time.perf_counter()
+        sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    agg = sgm.aggregate8
+
+    def marked(*a, **kw):
+        with record_function("sgm.aggregate8"):
+            out = agg(*a, **kw)
+            torch.cuda.synchronize()
+            return out
+
+    call()
+    wall = call()
+    sgm.aggregate8 = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = call()
+    finally:
+        sgm.aggregate8 = agg
+    dev = _device_summary(prof, 10, skip={"sgm.aggregate8"})
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "sgm.aggregate8"]
+    launch_t = [e.time_range.start for e in events
+                if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    per_call = [sum(a <= t <= b for t in launch_t) for a, b in ranges]
+    return {"wall_s": wall, "wall_profiled_s": wall_profiled,
+            "kernel_launches": dev["launches"], "copies": dev["copies"],
+            "device_busy_s": dev["busy_s"],
+            "device_busy_share": min(dev["busy_s"] / wall, 1.0),
+            "aggregate8_calls": len(ranges),
+            "aggregate8_launches": per_call,
+            "aggregate8_host_ms": [(b - a) / 1e3 for a, b in ranges],
+            "top10_kernels": dev["top"]}
+
+
+def phase_sgm(card, scene, gts):
+    """The SGM estimator on the card: dense_reconstruction with
+    DenseOptions(estimator="sgm") at full width, its quality against the
+    JAX package's, the .dimap export (fusion_mode=-1) and resume (-2), one
+    full-width pair on the card against the CPU, and that pair profiled."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import sgm
+    from openmvs_tpu_torch.synthetic import depth_quality
+
+    n = len(scene.images)
+    opts = DenseOptions(estimator="sgm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        pc, wall, stages, pairs, launches = _sgm_dense(scene, opts, tmp)
+        peak = torch.cuda.max_memory_allocated()
+        maps = _dmaps(tmp, n)
+    q = [depth_quality(maps[i], gts[i]) for i in range(n)]
+    est_s = sum(v for k, v in stages.items() if k.startswith("photometric pass"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pc_x, wall_x, _, pairs_x, _ = _sgm_dense(scene, DenseOptions(), tmp, fusion_mode=-1)
+        dimaps = sorted(f for f in os.listdir(tmp) if f.endswith(".dimap"))
+        pc_r, wall_r, _, pairs_r, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
+        for f in os.listdir(tmp):
+            if f.endswith(".dmap"):
+                os.remove(os.path.join(tmp, f))
+        pc_d, wall_d, _, pairs_d, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
+    export = {"export_points": len(pc_x), "export_wall_s": wall_x,
+              "dimap_files": len(dimaps), "pairs_matched": len(pairs_x),
+              "resume_wall_s": wall_r, "resume_points": len(pc_r),
+              "resume_pairs_matched": len(pairs_r),
+              "resume_cloud_equal": bool(len(pc_r) == len(pc) and np.array_equal(
+                  np.asarray(pc_r.points), np.asarray(pc.points))),
+              "dimap_resume_wall_s": wall_d, "dimap_resume_points": len(pc_d),
+              "dimap_resume_pairs_matched": len(pairs_d)}
+
+    rectA, rectB, d_lo, d_hi = _sgm_pair(scene, 0)
+    levels = []
+    disp_c, cost_c = sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda",
+                                         stats=levels)
+    t0 = time.perf_counter()
+    disp_h, cost_h = sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = {"disparity_equal": bool(np.array_equal(disp_c, disp_h, equal_nan=True)),
+              "cost_equal": bool(np.array_equal(cost_c, cost_h)),
+              "valid_share": float(np.isfinite(disp_c).mean()),
+              "d_range": [d_lo, d_hi], "levels": levels, "cpu_s": cpu_s,
+              "cpu_threads": torch.get_num_threads()}
+    prof = _profile_sgm_pair(rectA, rectB, d_lo, d_hi)
+
+    H, W = scene.images[0].gray.shape
+    rec = {"phase": "sgm", "views": n, "H": H, "W": W,
+           "options": 'DenseOptions(estimator="sgm")', "num_dirs": opts.sgm_num_dirs,
+           "subpixel_mode": opts.sgm_subpixel_mode, "depth_maps": len(maps),
+           "wall_s": wall, "depth_maps_per_s": len(maps) / wall,
+           "estimate_s": est_s,
+           "estimate_depth_maps_per_s": len(maps) / est_s if est_s else None,
+           "stages_s": stages, "points": len(pc), "pairs": len(pairs),
+           "pair_s": [p["seconds"] for p in pairs],
+           "level_s": [[lv["seconds"] for lv in p["levels"]] for p in pairs],
+           "level_hw_num_d": [[lv["hw"] + [lv["num_d"]] for lv in p["levels"]]
+                              for p in pairs],
+           "max_memory_allocated_bytes": peak, "pm_kernel_launches": launches,
+           "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
+           "jax_accuracy": JAX_SGM_ACCURACY, "jax_completeness": JAX_SGM_COMPLETENESS,
+           "export_resume": export, "pair_card_vs_cpu": vs_cpu, "pair_profile": prof,
+           "card": card}
+    emit(rec)
+    if len(pc) == 0 or len(maps) != n:
+        raise RuntimeError(f"SGM densify gave {len(maps)} maps and {len(pc)} points")
+    if any(launches.values()):
+        raise RuntimeError(f"the SGM path launched PatchMatch kernels: {launches}")
+    for i, (acc, comp) in enumerate(q):
+        if acc < 0.95 * JAX_SGM_ACCURACY[i] or comp < 0.95 * JAX_SGM_COMPLETENESS[i]:
+            raise RuntimeError(f"view {i}: SGM quality {(acc, comp)} below 95% of the "
+                               f"JAX package's ({JAX_SGM_ACCURACY[i]}, "
+                               f"{JAX_SGM_COMPLETENESS[i]})")
+    if not (export["export_points"] == 0 and export["dimap_files"] == len(pairs)
+            and export["pairs_matched"] == len(pairs) and export["resume_cloud_equal"]
+            and export["resume_pairs_matched"] == 0
+            and export["dimap_resume_pairs_matched"] == 0
+            and len(pc_d) > 0):
+        raise RuntimeError(f"SGM export/resume failed: {export}")
+    if not (vs_cpu["disparity_equal"] and vs_cpu["cost_equal"]):
+        raise RuntimeError("SGM pair: card and CPU disparities or costs differ")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -1541,6 +1770,7 @@ def main():
     phase_geom_unfused(card, phase_parity(card))
     phase_refine(card, scene)
     phase_texture(card, colored)
+    phase_sgm(card, scene, gts)
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

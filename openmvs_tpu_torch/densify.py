@@ -6,10 +6,14 @@ SceneDensify.cpp:1683-1980): view selection, sparse seeds, per-view
 PatchMatch over a sub-resolution pyramid, geometric-consistency passes,
 speckle/gap filters, the cross-view filter, and fusion into one cloud.
 
+``estimator="sgm"`` replaces PatchMatch by tSGM stereo over the scored
+neighbour pairs, fused per view (``estimate_depth_map_sgm``), with the
+pairs' disparities cached as ``.dimap`` files beside the depth maps.
+
 Estimation runs on ``device`` (the card by default); filters and fusion
-are host numpy, as in the JAX package. Not ported yet: the SGM estimator,
-multi-device and sharded paths, mesh-visibility seeding, loading images
-from disk, and the verbose depth-map image dumps.
+are host numpy, as in the JAX package. Not ported yet: multi-device and
+sharded paths, mesh-visibility seeding, loading images from disk, and the
+verbose depth-map image dumps.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ import torch
 
 from openmvs_tpu_torch.config import DenseOptions
 from openmvs_tpu_torch.geometry.camera import Camera
+from openmvs_tpu_torch.io import dimap as dimapio
 from openmvs_tpu_torch.io import dmap as dmapio
 from openmvs_tpu_torch.io import images as imio
-from openmvs_tpu_torch.ops import filters, fusion, patchmatch, seed
+from openmvs_tpu_torch.ops import filters, fusion, patchmatch, seed, sgm
 from openmvs_tpu_torch.scene import PointCloud, Scene
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils import rng
@@ -374,6 +379,138 @@ def estimate_depth_map(
     return deferred.resolve()
 
 
+def _sgm_pair_range(pts_ref: np.ndarray, info: dict, camA: Camera, camB: Camera,
+                    opts: DenseOptions) -> Tuple[int, int]:
+    """Global disparity range of a rectified pair from the reference's
+    sparse points projected into both rectified cameras, 1st and 99th
+    percentiles widened by 4 (the reference seeds from the triangulated
+    sparse depth map, SemiGlobalMatcher.cpp:610-637); (-sgm_num_disparities,
+    0) with fewer than 4 points in front of both."""
+    d_lo, d_hi = -opts.sgm_num_disparities, 0
+    if len(pts_ref) >= 4:
+        Kn, Rn = info["Kn"], info["Rn"]
+
+        def rect_u(C):
+            Xc = (Rn @ (pts_ref - C).T)
+            z = Xc[2]
+            ok = z > 1e-9
+            return (Kn[0, 0] * Xc[0] / np.where(ok, z, 1) + Kn[0, 2]), ok
+
+        uA, okA = rect_u(camA.C)
+        uB, okB = rect_u(camB.C)
+        ok = okA & okB
+        if ok.sum() >= 4:
+            d = (uB - uA)[ok]
+            d_lo = int(np.floor(np.percentile(d, 1))) - 4
+            d_hi = int(np.ceil(np.percentile(d, 99))) + 4
+    return d_lo, d_hi
+
+
+def estimate_depth_map_sgm(
+    scene: Scene,
+    ref_idx: int,
+    opts: DenseOptions,
+    dimap_dir: Optional[str] = None,
+    device="cuda",
+) -> Optional[DepthMapResult]:
+    """Depth from tSGM stereo fused over all scored neighbour pairs
+    (SemiGlobalMatcher::Match + ::Fuse, SemiGlobalMatcher.cpp:530-737,739):
+    per pair, rectify, match coarse to fine on ``device`` (per-pixel
+    disparity windows, WZNCC costs, cross-check, sub-pixel refinement);
+    then cluster-fuse the pair depth maps in the reference frame (largest
+    agreeing trust regions, min_views gate). With ``dimap_dir`` each pair's
+    disparities are cached as a ``.dimap`` file and read back instead of
+    matched when present (Match's File::isPresent skip)."""
+    dev = devmod.resolve(device)
+    img = scene.images[ref_idx]
+    neighbors = img.meta.view_scores
+    if not neighbors:
+        return None
+    num = opts.num_views if opts.num_views > 0 else len(neighbors)
+    id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
+    camA = img.working_camera()
+    H, W = img.gray.shape
+
+    # sparse points seen by the reference (for disparity-range seeding)
+    pts_ref = np.asarray(
+        [scene.pointcloud.points[i]
+         for i, v in enumerate(scene.pointcloud.views) if img.meta.id in v],
+        np.float64).reshape(-1, 3)
+
+    pair_maps = []
+    for vs in neighbors[:num]:
+        j = id_to_idx.get(vs.id)
+        if j is None:
+            continue
+        nb = scene.images[j]
+        camB = nb.working_camera()
+        try:
+            rectA, rectB, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
+        except ValueError:
+            continue
+
+        cache = None
+        if dimap_dir:
+            cache = os.path.join(dimap_dir, f"{img.meta.id:04d}_{nb.meta.id:04d}.dimap")
+        disp = cost = None
+        if cache and os.path.exists(cache):
+            dd = dimapio.load(cache)
+            disp = dd.disparity.astype(np.float32)
+            disp[~np.isfinite(disp)] = np.nan
+            cost = (dd.cost.astype(np.float32)
+                    if dd.cost is not None else np.zeros_like(disp))
+        if disp is None:
+            d_lo, d_hi = _sgm_pair_range(pts_ref, info, camA, camB, opts)
+            disp, cost = sgm.match_pair_tsgm(
+                rectA, rectB, d_lo, d_hi,
+                p1=opts.sgm_p1, p2=opts.sgm_p2, alpha=opts.sgm_p2_alpha,
+                beta=opts.sgm_p2_beta,
+                subpixel_mode=opts.sgm_subpixel_mode,
+                num_dirs=opts.sgm_num_dirs, device=dev,
+            )
+            if cache:
+                Q = np.eye(4)
+                Q[:3, :3] = info["Rn"]
+                Q[:3, 3] = info["C1"]
+                Q[3, 0] = info["baseline"]
+                dd = dimapio.DisparityData(
+                    disparity=disp.astype(np.float32),
+                    image_width=W, image_height=H,
+                    H=info["TA"], Q=Q,
+                    subpixel_steps=opts.sgm_subpixel_steps,
+                    cost=np.clip(np.nan_to_num(cost), 0, 65535).astype(np.uint16),
+                )
+                os.makedirs(dimap_dir, exist_ok=True)
+                dimapio.save(dd, cache)
+
+        pair_maps.append(sgm.project_disparity_to_depth(
+            disp, np.nan_to_num(cost), info, camA, (H, W),
+            subpixel_steps=float(opts.sgm_subpixel_steps)))
+
+    if not pair_maps:
+        return None
+    depth, conf = sgm.fuse_pair_depths(pair_maps, max(1, opts.min_views - 1)
+                                       if len(pair_maps) > 1 else 1)
+    if depth is None or not (depth > 0).any():
+        return None
+    valid = depth > 0
+    d_min = float(np.percentile(depth[valid], 2))
+    d_max = float(np.percentile(depth[valid], 98))
+    normal = np.zeros((H, W, 3), np.float32)
+    normal[..., 2] = np.where(valid, -1.0, 0.0)
+    conf_n = np.where(valid, np.clip(conf, 0.05, 1.0), 0.0)
+    return DepthMapResult(
+        image_idx=ref_idx,
+        depth=depth.astype(np.float32),
+        normal=normal,
+        conf=conf_n.astype(np.float32),
+        d_min=d_min,
+        d_max=d_max,
+        neighbor_ids=[vs.id for vs in neighbors[:num] if vs.id in id_to_idx],
+        camera=camA,
+    )
+
+
 def optimize_depth_map(res: DepthMapResult, opts: DenseOptions) -> None:
     """Speckle removal + gap interpolation (EVT_OPTIMIZEDEPTHMAP stage)."""
     if opts.optimize & 1:
@@ -444,14 +581,17 @@ def dense_reconstruction(
 
     fusion_mode (DensifyPointCloud --fusion-mode): 0 = estimate + fuse
     (default); 1 = export depth maps only (requires save_dmaps_to, returns
-    an empty cloud); -2 = fuse from existing maps (estimation resumes off
-    the .dmap files, so only missing views recompute). Views whose final
-    .dmap already exists in save_dmaps_to are resumed, not re-estimated."""
+    an empty cloud); -1 = export SGM disparity maps only (forces
+    estimator="sgm", per-pair .dimap files cached next to the dmaps); -2 =
+    fuse from existing maps (estimation resumes off the .dmap/.dimap
+    caches, so only missing views recompute). Views whose final .dmap
+    already exists in save_dmaps_to are resumed, not re-estimated."""
     dev = devmod.resolve(device)
     if abs(fusion_mode) == 1 and not save_dmaps_to:
         raise ValueError("fusion_mode +/-1 (map export only) requires save_dmaps_to")
-    if fusion_mode == -1 or opts.estimator != "patchmatch":
-        raise NotImplementedError("the SGM estimator is not ported yet")
+    if fusion_mode == -1 and opts.estimator != "sgm":
+        log.info("fusion-mode -1: forcing estimator='sgm' (disparity export)")
+        opts = dataclasses.replace(opts, estimator="sgm")
     if max_dim is None:
         w0 = max(im.width for im in scene.images)
         h0 = max(im.height for im in scene.images)
@@ -491,16 +631,23 @@ def dense_reconstruction(
             log.info("resume: %d views loaded from existing dmaps", len(resumed))
 
     # pass 1: photometric estimation
+    use_sgm = opts.estimator == "sgm"
     todo = [i for i in range(scene.n_views) if scene.images[i].meta.id not in resumed]
+    if use_sgm:
+        est = lambda i: estimate_depth_map_sgm(scene, i, opts, dimap_dir=save_dmaps_to,
+                                               device=dev)
+    else:
+        est = lambda i: estimate_depth_map(scene, i, opts, defer_download=True, device=dev)
     with timed(log, f"photometric pass ({len(todo)} views)"):
-        raw = _run_views(lambda i: estimate_depth_map(
-            scene, i, opts, defer_download=True, device=dev), todo)
+        raw = _run_views(est, todo)
     for i, r in raw.items():
         if r is not None:
             results[scene.images[i].meta.id] = r
 
-    # pass 2: geometric-consistency re-estimation
-    for gi in range(opts.estimation_geometric_iters):
+    # pass 2: geometric-consistency re-estimation; SGM results are fused
+    # across pairs by the SGM path itself, and the reference's SGM fusion
+    # mode skips PatchMatch re-estimation (SceneDensify.cpp:2045-2057)
+    for gi in range(0 if use_sgm else opts.estimation_geometric_iters):
         have = [i for i in range(scene.n_views)
                 if scene.images[i].meta.id in results
                 and scene.images[i].meta.id not in resumed]

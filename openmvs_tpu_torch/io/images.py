@@ -8,6 +8,8 @@ integer factors and fractional area weights otherwise. ``box_blur`` and
 ``gaussian_blur`` stand for ``cv2.blur`` and ``cv2.GaussianBlur`` on
 float32 images (texturing's seam leveling and sharpening), with OpenCV's
 default border (BORDER_REFLECT_101, scipy's ``mirror``).
+``warp_perspective`` stands for ``cv2.warpPerspective`` on a float32 gray
+image (SGM's pair rectification).
 """
 
 from __future__ import annotations
@@ -109,3 +111,85 @@ def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
     k = gaussian_kernel(ksize, sigma).astype(np.float32)
     out = ndimage.correlate1d(img, k, axis=0, mode="mirror")
     return ndimage.correlate1d(out, k, axis=1, mode="mirror")
+
+
+def _invert3(M: np.ndarray) -> list:
+    """The inverse of a 3x3 matrix as OpenCV's ``invert`` forms it for 3x3
+    (the adjugate times the reciprocal of the determinant, in float64),
+    row-major."""
+    S = [[float(v) for v in row] for row in np.asarray(M, np.float64)]
+    d = (S[0][0] * (S[1][1] * S[2][2] - S[1][2] * S[2][1])
+         - S[0][1] * (S[1][0] * S[2][2] - S[1][2] * S[2][0])
+         + S[0][2] * (S[1][0] * S[2][1] - S[1][1] * S[2][0]))
+    if d == 0.0:
+        return [0.0] * 9
+    d = 1.0 / d
+    return [(S[1][1] * S[2][2] - S[1][2] * S[2][1]) * d,
+            (S[0][2] * S[2][1] - S[0][1] * S[2][2]) * d,
+            (S[0][1] * S[1][2] - S[0][2] * S[1][1]) * d,
+            (S[1][2] * S[2][0] - S[1][0] * S[2][2]) * d,
+            (S[0][0] * S[2][2] - S[0][2] * S[2][0]) * d,
+            (S[0][2] * S[1][0] - S[0][0] * S[1][2]) * d,
+            (S[1][0] * S[2][1] - S[1][1] * S[2][0]) * d,
+            (S[0][1] * S[2][0] - S[0][0] * S[2][1]) * d,
+            (S[0][0] * S[1][1] - S[0][1] * S[1][0]) * d]
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once (the product is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_perspective(img: np.ndarray, M: np.ndarray, width: int, height: int
+                     ) -> np.ndarray:
+    """``cv2.warpPerspective(img, M, (width, height))`` of a float32 (h, w)
+    image with the default flags: bilinear samples, BORDER_CONSTANT 0.
+
+    OpenCV 5's x86 warp kernel, rebuilt: ``M`` (source to destination) is
+    inverted in float64 and rounded to float32; destination pixel (x, y)
+    samples the source at (X / w, Y / w), each of X, Y and w the float32
+    form x c0 + y c1 + c2 of its row of the inverse. The vector loop (16
+    pixels a step) computes it as fma(x, c0, y c1 + c2), the scalar tail
+    (the last W mod 16 pixels of a row) as fma(x, c0, y c1) + c2. The
+    sample is two horizontal lerps and a vertical one, v0 + a (v1 - v0) as
+    fused multiply-adds, at the coordinate's unquantised fraction; source
+    pixels outside the image read 0. (OpenCV 4.10 and older quantised the
+    fraction to 1/32.)"""
+    img = np.asarray(img, np.float32)
+    if img.ndim != 2:
+        raise ValueError("warp_perspective takes a 2-D float32 image")
+    h, w = img.shape
+    m = np.asarray(_invert3(M), np.float64).astype(np.float32)
+    xs = np.arange(width, dtype=np.float32)[None, :]
+    ys = np.arange(height, dtype=np.float32)[:, None]
+
+    tail = xs >= width - width % 16
+
+    def coord(c0, c1, c2):
+        return np.where(tail, _fma32(xs, c0, ys * c1) + c2, _fma32(xs, c0, ys * c1 + c2))
+
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        wz = coord(m[6], m[7], m[8])
+        sx = coord(m[0], m[1], m[2]) / wz
+        sy = coord(m[3], m[4], m[5]) / wz
+    out = np.zeros((height, width), np.float32)
+    if h == 0 or w == 0:
+        return out
+    ok = (np.isfinite(sx) & np.isfinite(sy) & (np.abs(sx) < 2 ** 30)
+          & (np.abs(sy) < 2 ** 30))
+    sx, sy = np.where(ok, sx, -4.0), np.where(ok, sy, -4.0)
+    x0f, y0f = np.floor(sx), np.floor(sy)
+    a, b = sx - x0f, sy - y0f
+    x0, y0 = x0f.astype(np.int64), y0f.astype(np.int64)
+
+    def pix(yy, xx):
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        return np.where(inside, img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)],
+                        np.float32(0))
+
+    p00, p01 = pix(y0, x0), pix(y0, x0 + 1)
+    p10, p11 = pix(y0 + 1, x0), pix(y0 + 1, x0 + 1)
+    v0 = _fma32(a, p01 - p00, p00)
+    v1 = _fma32(a, p11 - p10, p10)
+    return _fma32(b, v1 - v0, v0)

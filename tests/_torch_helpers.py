@@ -1,10 +1,49 @@
 """Shared helpers of the PyTorch port's parity tests: the same numpy inputs
-go through the JAX package (on the CPU) and through the port."""
+go through the JAX package (on the CPU) and through the port.
+
+Importing this module also builds the JAX package's native library once
+for all test processes (``build_native_locked``): the port's test modules
+import it at collection, which every xdist worker does before it runs a
+test."""
+
+import fcntl
+import os
+import traceback
+import warnings
 
 import numpy as np
 import torch
 
 from openmvs_tpu_torch import convert
+
+
+def build_native_locked(native=None):
+    """Build ``openmvs_tpu.native``'s library (or that of the module
+    ``native``, a copy of it) if it is missing or stale, serialised across
+    processes by an exclusive ``flock`` on a lock file beside the library.
+
+    ``native.build`` compiles every process's library into the same
+    ``.tmp`` path and renames it, and its lock holds only within a process:
+    test workers that reach a first native call together on a fresh tree
+    race, and a loser's rename finds no ``.tmp``. Under this lock the first
+    process builds and the others then find the library fresh. Returns
+    (library path, whether this call compiled it)."""
+    if native is None:
+        from openmvs_tpu import native
+    with open(native._LIB_PATH + ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            built = native._needs_build()
+            return native.build(), built
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+try:
+    build_native_locked()
+except Exception:  # noqa: BLE001 - collection goes on; the native tests fail with the cause
+    warnings.warn("building openmvs_tpu.native at collection failed:\n"
+                  + traceback.format_exc())
 
 
 def to_numpy_dict(nt) -> dict:
@@ -202,3 +241,24 @@ def depth_agreement(port_maps, jax_maps):
         n_both += int(both.sum())
         per_view.append(float(ok.mean()))
     return masks, close / max(n_both, 1), per_view
+
+
+# the SGM slice comparison (tests/test_torch_sgm_slice.py): the synthetic
+# scene at 120x160 with three views
+SGM_VIEWS = 3
+
+
+def disparity_agreement(a: np.ndarray, b: np.ndarray, tol: float = 1e-3) -> float:
+    """Share of pixels where two disparity maps agree: both invalid, or
+    both valid within ``tol`` pixels."""
+    fa, fb = np.isfinite(a), np.isfinite(b)
+    same = (~fa & ~fb) | (fa & fb & (np.abs(np.where(fa & fb, a - b, 0.0)) <= tol))
+    return float(same.mean())
+
+
+def pair_disparities(folder: str) -> dict:
+    """{file name: disparities} of the ``.dimap`` files in ``folder``."""
+    from openmvs_tpu_torch.io import dimap
+
+    return {f: dimap.load(os.path.join(folder, f)).disparity
+            for f in sorted(os.listdir(folder)) if f.endswith(".dimap")}
