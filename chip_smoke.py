@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
-texturing and SGM densify paths on one NVIDIA GPU.
+texturing and SGM densify paths, and the whole chain densify -> mesh ->
+clean -> refine -> texture -> save, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device     - fails without CUDA; prints the card's name and power limit
+  1. device     - fails without CUDA; prints the card's name and power
+                  limit, then whether PIL, torchvision and
+                  torchvision.io.decode_jpeg import on this host, with their
+                  versions (the evidence for choosing the port's image
+                  decoder; printed only)
   2. build      - builds the CUDA kernels from csrc/ (one nvcc per source,
                   all started together; sm_90a)
   3. kernels    - the multi-view scorer K1-mv (exact, nn), K2-mv (exact) and
@@ -29,7 +34,7 @@ Phases, each printing one JSON line:
                   multi-view launch per score_hypotheses call, no per-view
                   K1/K2), and depth accuracy/completeness per view against
                   ground truth, held to 95% of what the JAX package reaches
-                  on the same scene
+                  on the same scene; its cloud goes on to phase pipeline
   6. profile    - torch.profiler over one view's photometric
                   estimate_depth_map at 480x640: device-busy share, the top
                   10 device kernels by time, launches, host time per sweep
@@ -88,6 +93,27 @@ Phases, each printing one JSON line:
                   the CPU's; torch.profiler over that pair: launches per
                   aggregate8 and the device-busy share. Plain PyTorch: the
                   JAX SGM reaches no Pallas kernel
+ 13. pipeline   - phase densify's cloud through the rest of the chain:
+                  reconstruct.reconstruct_mesh(scene, MeshOptions()) on the
+                  host (points before and after dedup, tets, raw faces,
+                  seconds of dedup, Delaunay, ray walk with the cut and
+                  extraction; run twice, whether the faces are equal),
+                  mesh_ops.clean_mesh(decimate=0.5) (faces, seconds),
+                  refine.refine_mesh(RefineOptions(scales=2, iters=16)) on
+                  the card (seconds, peak memory), texture.texture_mesh(
+                  TextureOptions()) on the card for the scene with its
+                  colors (seconds per stage, unseen share, pages), then the
+                  dense cloud, the clean and refined meshes (PLY) and the
+                  textured mesh (OBJ, MTL, PNG pages) saved and read back
+                  with the port's loaders (equal; file sizes). Holds, from
+                  the JAX package's figures for the same chain: raw and
+                  clean faces within 5%; the clean mesh's mean height error
+                  at most 1.05x and its share within HEIGHT_TOL at least
+                  0.98x, over the vertices in the height field's domain;
+                  refinement does not raise the height error; color
+                  fidelity as phase texture holds it. Meshing, cleaning and
+                  the codecs are host code (no Pallas kernel in the JAX
+                  package): no kernel is added
 Each of phases 4, 5, 7, 9 and 12 sets the launch counts to 0 just before
 the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
@@ -134,6 +160,28 @@ JAX_REFINE_HEIGHT_ERROR = 0.010049285568380237
 JAX_TEXTURE_FIDELITY = 1.6666666666666667
 FIDELITY_BOUND = 5
 JAX_TEXTURE_WITHIN = 0.9692992586091415
+
+# the share of a mesh's vertices within HEIGHT_TOL of the height field
+# (_mesh_height_quality)
+HEIGHT_TOL = 0.01
+
+# The JAX package's figures for phase pipeline's chain on the same scene
+# (5 views at 640x480): dense_reconstruction(DenseOptions()) (288,468
+# points), reconstruct_mesh(MeshOptions()), clean_mesh(decimate=0.5),
+# refine_mesh(RefineOptions(scales=2, iters=16)), texture_mesh(
+# TextureOptions()) on the scene with its colors; raw and clean faces,
+# _mesh_height_quality of the clean and the refined mesh, _color_fidelity
+# of the textured mesh. CPU (8 cores), measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_mesh_quality.py --height 480 --width 640
+# (541 s: densify 489.4, mesh 15.2, clean 2.6, refine 27.0, texture 7.3)
+JAX_RAW_FACES = 191314
+JAX_CLEAN_FACES = 95688
+JAX_CLEAN_HEIGHT_ERROR = 0.006926291612376185
+JAX_CLEAN_WITHIN = 0.7568072554741461
+JAX_REFINED_HEIGHT_ERROR = 0.006546988798596461
+JAX_REFINED_WITHIN = 0.7856228892664611
+JAX_PIPELINE_FIDELITY = 1.6666666666666667
+JAX_PIPELINE_WITHIN = 0.9787213881109309
 
 # Per-view (accuracy, completeness) of the JAX package's SGM estimator on
 # phase densify's scene (480x640, 5 views, DenseOptions(estimator="sgm")),
@@ -243,7 +291,29 @@ def phase_device():
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    emit({"phase": "device", "image_decoders": _image_decoders()})
     return card
+
+
+def _image_decoders():
+    """Whether PIL, torchvision and torchvision.io.decode_jpeg import on this
+    host, and their versions (ROADMAP Queue 1, item 4 chooses the port's
+    image decoder from this). Prints only: no path uses them."""
+    import importlib
+
+    out = {}
+    for name, attr in (("PIL", None), ("torchvision", None),
+                       ("torchvision.io", "decode_jpeg")):
+        try:
+            mod = importlib.import_module(name)
+            if attr is not None:
+                getattr(mod, attr)
+                name = f"{name}.{attr}"
+            out[name] = {"imports": True, "version": getattr(mod, "__version__", None)}
+        except Exception as e:  # noqa: BLE001 - the failure is the finding
+            out[name if attr is None else f"{name}.{attr}"] = {
+                "imports": False, "error": f"{type(e).__name__}: {e}"[:200]}
+    return out
 
 
 def phase_build():
@@ -747,12 +817,17 @@ def _variants_rows(card, args, inputs):
 
 
 class _StageLog(logging.Handler):
+    """Collects a logger's timed stages ("label (1.23s)") and messages."""
+
     def __init__(self):
         super().__init__()
         self.stages = {}
+        self.messages = []
 
     def emit(self, record):
-        m = re.match(r"(.*) \(([0-9.]+)s\)$", record.getMessage())
+        msg = record.getMessage()
+        self.messages.append(msg)
+        m = re.match(r"(.*) \(([0-9.]+)s\)$", msg)
         if m:
             self.stages[m.group(1)] = float(m.group(2))
 
@@ -884,7 +959,7 @@ def phase_densify(card, scene, gts, t_scene):
     if len(pc) == 0:
         raise RuntimeError("empty dense cloud")
     _check_quality(q)
-    return launches, maps
+    return launches, maps, pc
 
 
 def _union_us(intervals):
@@ -1102,6 +1177,22 @@ def _height_error(vertices):
 
     v = np.asarray(vertices, np.float64)
     return float(np.abs(v[:, 2] - height(v[:, 0], v[:, 1])).mean())
+
+
+def _mesh_height_quality(vertices):
+    """(mean |z - height(x, y)|, share of those errors within HEIGHT_TOL,
+    vertex count) over the vertices whose (x, y) falls in the height
+    field's domain [-3, 3]^2. A reconstructed mesh also carries faces on
+    the hull beyond the domain, where the truth has no height: the face
+    counts limit those. Either package's vertices."""
+    import numpy as np
+
+    from openmvs_tpu_torch.synthetic import height
+
+    v = np.asarray(vertices, np.float64)
+    v = v[(np.abs(v[:, 0]) <= 3.0) & (np.abs(v[:, 1]) <= 3.0)]
+    err = np.abs(v[:, 2] - height(v[:, 0], v[:, 1]))
+    return float(err.mean()), float((err <= HEIGHT_TOL).mean()), len(v)
 
 
 class _FullScale:
@@ -1740,6 +1831,183 @@ def phase_sgm(card, scene, gts):
         raise RuntimeError("SGM pair: card and CPU disparities or costs differ")
 
 
+def _reconstruct(scene, pc):
+    """reconstruct_mesh(scene, MeshOptions(), pc): the mesh, the call's
+    seconds and its stage log."""
+    from openmvs_tpu_torch import reconstruct
+    from openmvs_tpu_torch.config import MeshOptions
+
+    stage_log = _StageLog()
+    logger = logging.getLogger("omvs_torch.reconstruct")
+    logger.addHandler(stage_log)
+    try:
+        t0 = time.perf_counter()
+        mesh = reconstruct.reconstruct_mesh(scene, MeshOptions(), pc=pc)
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(stage_log)
+    return mesh, wall, stage_log
+
+
+def _obj_text(x):
+    """float32 of ``x`` as the OBJ writer's 6 decimals give it back."""
+    import numpy as np
+
+    return np.array([float(f"{c:.6f}") for c in np.asarray(x).ravel()],
+                    np.float32).reshape(np.shape(x))
+
+
+def _save_and_read_back(pc, clean, refined, textured):
+    """Save the dense cloud, the clean and refined meshes (PLY) and the
+    textured mesh (OBJ, MTL and PNG pages) into a temporary directory and
+    read them back with the port's loaders: per file its bytes, and
+    whether what came back equals what was saved (an OBJ holds 6 decimals,
+    so its vertices and texcoords are compared with that text's values;
+    its faces come back grouped by atlas page)."""
+    import numpy as np
+
+    from openmvs_tpu_torch.io import obj as objio
+    from openmvs_tpu_torch.io import ply as plyio
+    from openmvs_tpu_torch.io import png
+    from openmvs_tpu_torch.scene import Scene
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = Scene()
+        scene.pointcloud = pc
+        scene.save_pointcloud(os.path.join(tmp, "dense.ply"))
+        d = plyio.load(os.path.join(tmp, "dense.ply"))
+        ok = np.array_equal(d.vertices, pc.points)
+        if pc.has_normals:
+            v = d.elements["vertex"]
+            ok &= np.array_equal(np.stack([v["nx"], v["ny"], v["nz"]], -1), pc.normals)
+        out["dense.ply"] = bool(ok)
+        for name, mesh in (("clean.ply", clean), ("refined.ply", refined)):
+            scene.mesh = mesh
+            scene.save_mesh(os.path.join(tmp, name))
+            back = Scene()
+            back.load_mesh(os.path.join(tmp, name))
+            out[name] = bool(np.array_equal(back.mesh.vertices, mesh.vertices)
+                             and np.array_equal(back.mesh.faces, mesh.faces))
+        scene.mesh = textured
+        scene.save_mesh(os.path.join(tmp, "textured.obj"))
+        v, f, tc, tex = objio.load_mesh_obj(os.path.join(tmp, "textured.obj"))
+        pages = textured.textures or [textured.texture]
+        fp = (np.asarray(textured.face_page) if textured.face_page is not None
+              else np.zeros(len(textured.faces), np.int64))
+        order = np.argsort(fp, kind="stable")
+        out["textured.obj"] = bool(
+            np.array_equal(v, _obj_text(textured.vertices))
+            and np.array_equal(f, textured.faces[order])
+            and np.array_equal(tc, _obj_text(textured.face_tex_coords[order])))
+        names = ["textured.png"] + [f"textured_{p}.png" for p in range(1, len(pages))]
+        out["textured pages"] = bool(
+            np.array_equal(tex, pages[-1])
+            and all(np.array_equal(png.read(os.path.join(tmp, n)), p)
+                    for n, p in zip(names, pages)))
+        sizes = {n: os.path.getsize(os.path.join(tmp, n)) for n in sorted(os.listdir(tmp))}
+    return out, sizes
+
+
+def phase_pipeline(card, scene, colored, pc):
+    """The whole chain on the port: phase densify's cloud meshed
+    (reconstruct_mesh, host), cleaned (clean_mesh(decimate=0.5), host),
+    refined on the card (refine_mesh, RefineOptions(scales=2, iters=16)),
+    textured on the card (texture_mesh, TextureOptions(), on the scene
+    with its colors), saved and read back; held to the JAX package's
+    figures for the same chain."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import mesh_ops, native, refine
+    from openmvs_tpu_torch.config import RefineOptions
+
+    t_phase = time.perf_counter()
+    native.build()
+    mesh, mesh_s, log = _reconstruct(scene, pc)
+    dedup = [re.match(r"dedup: (\d+) -> (\d+) points", m) for m in log.messages]
+    dedup = [m for m in dedup if m][0]
+    tets = [re.match(r"(\d+) points -> (\d+) tets", m) for m in log.messages]
+    tets = [m for m in tets if m][0]
+    mesh2, mesh2_s, _ = _reconstruct(scene, pc)
+    rerun_equal = bool(np.array_equal(mesh.faces, mesh2.faces)
+                       and np.array_equal(mesh.vertices, mesh2.vertices))
+
+    t0 = time.perf_counter()
+    clean = mesh_ops.clean_mesh(mesh, decimate=0.5)
+    clean_s = time.perf_counter() - t0
+
+    rstats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    refined = refine.refine_mesh(scene, clean, RefineOptions(scales=2, iters=16),
+                                 device="cuda", stats=rstats)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    refine_peak = torch.cuda.max_memory_allocated()
+
+    textured, tstats, texture_s, texture_peak = _texture_run(colored, refined, "cuda")
+    tex = _texture_summary(textured, tstats, texture_s, texture_peak, colored, refined)
+    t0 = time.perf_counter()
+    saved, sizes = _save_and_read_back(pc, clean, refined, textured)
+    save_s = time.perf_counter() - t0
+
+    q_clean = _mesh_height_quality(clean.vertices)
+    q_refined = _mesh_height_quality(refined.vertices)
+    H, W = scene.images[0].gray.shape
+    rec = {"phase": "pipeline", "views": len(scene.images), "H": H, "W": W,
+           "mesh": {"points": len(pc),
+                    "points_after_dedup": int(dedup.group(2)),
+                    "tets": int(tets.group(2)), "raw_faces": len(mesh.faces),
+                    "raw_vertices": len(mesh.vertices), "wall_s": mesh_s,
+                    "stages_s": log.stages, "rerun_wall_s": mesh2_s,
+                    "rerun_equal": rerun_equal, "omp_num_threads":
+                    os.environ.get("OMP_NUM_THREADS"), "host_cpus": os.cpu_count()},
+           "clean": {"faces": len(clean.faces), "vertices": len(clean.vertices),
+                     "wall_s": clean_s, "height_error": q_clean[0],
+                     f"within_{HEIGHT_TOL}": q_clean[1], "domain_vertices": q_clean[2]},
+           "refine": {"options": "RefineOptions(scales=2, iters=16)", "wall_s": refine_s,
+                      "scales": rstats["scales"], "pairs": rstats["pairs"],
+                      "host_s": rstats["host_s"], "max_memory_allocated_bytes": refine_peak,
+                      "faces": len(refined.faces), "height_error": q_refined[0],
+                      f"within_{HEIGHT_TOL}": q_refined[1]},
+           "texture": tex, "saved_equal": saved, "file_bytes": sizes,
+           "save_and_read_back_s": save_s, "phase_s": time.perf_counter() - t_phase,
+           "jax": {"raw_faces": JAX_RAW_FACES, "clean_faces": JAX_CLEAN_FACES,
+                   "clean_height_error": JAX_CLEAN_HEIGHT_ERROR,
+                   "clean_within": JAX_CLEAN_WITHIN,
+                   "refined_height_error": JAX_REFINED_HEIGHT_ERROR,
+                   "refined_within": JAX_REFINED_WITHIN,
+                   "color_fidelity": JAX_PIPELINE_FIDELITY,
+                   f"faces_within_{FIDELITY_BOUND}": JAX_PIPELINE_WITHIN},
+           "card": card}
+    emit(rec)
+    for what, got, ref in (("raw faces", len(mesh.faces), JAX_RAW_FACES),
+                           ("clean faces", len(clean.faces), JAX_CLEAN_FACES)):
+        if abs(got - ref) > 0.05 * ref:
+            raise RuntimeError(f"{what} {got}: not within 5% of the JAX package's {ref}")
+    if not q_clean[0] <= 1.05 * JAX_CLEAN_HEIGHT_ERROR:
+        raise RuntimeError(f"clean mesh height error {q_clean[0]} above 1.05x the JAX "
+                           f"package's {JAX_CLEAN_HEIGHT_ERROR}")
+    if not q_clean[1] >= 0.98 * JAX_CLEAN_WITHIN:
+        raise RuntimeError(f"clean mesh share within {HEIGHT_TOL} {q_clean[1]} below 0.98x "
+                           f"the JAX package's {JAX_CLEAN_WITHIN}")
+    if not q_refined[0] <= q_clean[0]:
+        raise RuntimeError(f"refinement raised the height error: {q_clean[0]} -> {q_refined[0]}")
+    if not np.isfinite(np.asarray(refined.vertices)).all():
+        raise RuntimeError("refine produced non-finite vertices")
+    if not tex["color_fidelity"] <= 1.02 * JAX_PIPELINE_FIDELITY:
+        raise RuntimeError(f"color fidelity {tex['color_fidelity']} above 1.02x the JAX "
+                           f"package's {JAX_PIPELINE_FIDELITY}")
+    within = tex[f"faces_within_{FIDELITY_BOUND}"]
+    if not within >= 0.98 * JAX_PIPELINE_WITHIN:
+        raise RuntimeError(f"{within} of faces within {FIDELITY_BOUND} of their source color, "
+                           f"below 0.98x the JAX package's {JAX_PIPELINE_WITHIN}")
+    if not all(saved.values()):
+        raise RuntimeError(f"saved files read back differently: {saved}")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -1763,7 +2031,7 @@ def main():
     scene = scene_from_arrays(**dict(arrays, colors=None))
     rows = phase_kernels(card, scene, gts)
     launches = {"variants": phase_variants(card)}
-    launches["densify"], maps = phase_densify(card, scene, gts, t_scene)
+    launches["densify"], maps, dense = phase_densify(card, scene, gts, t_scene)
     phase_profile(card, scene)
     launches["geom_split"] = phase_geom_split(card, scene, gts, maps,
                                               launches["densify"])
@@ -1771,6 +2039,7 @@ def main():
     phase_refine(card, scene)
     phase_texture(card, colored)
     phase_sgm(card, scene, gts)
+    phase_pipeline(card, scene, colored, dense)
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

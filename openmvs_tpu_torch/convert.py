@@ -1,10 +1,11 @@
 """Carrying state across from the JAX package.
 
-The system has no weights: what crosses is the scene, the mesh and the
-packed per-view PatchMatch state. These functions take plain numpy arrays
-(what ``np.asarray`` gives for the JAX package's ``PMData``/``PMState``
-fields, or the arrays a JAX-package ``Scene`` or ``Mesh`` holds) and build
-the port's objects, so both packages can compute on identical inputs.
+The system has no weights: what crosses is the scene, the point cloud, the
+mesh and the packed per-view PatchMatch state. These functions take plain
+numpy arrays (what ``np.asarray`` gives for the JAX package's
+``PMData``/``PMState`` fields, or the arrays a JAX-package ``Scene``,
+``PointCloud`` or ``Mesh`` holds) and build the port's objects, so both
+packages can compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -98,3 +99,32 @@ def mesh_to_numpy(mesh: Mesh):
     arrays a JAX-package ``Mesh`` is built from."""
     return (np.array(mesh.vertices, np.float32, order="C"),
             np.array(mesh.faces, np.int32, order="C"))
+
+
+def pointcloud_from_numpy(points: np.ndarray, views: Sequence[np.ndarray],
+                          weights: Optional[Sequence[np.ndarray]] = None,
+                          normals: Optional[np.ndarray] = None,
+                          colors: Optional[np.ndarray] = None) -> PointCloud:
+    """Port ``PointCloud`` from (n, 3) points, the ragged per-point view ids
+    and weights, and optional (n, 3) normals and colors (copied, as float32,
+    uint32, float32, float32 and uint8; empty where not given)."""
+    pc = PointCloud(points=np.array(points, np.float32, order="C").reshape(-1, 3),
+                    views=[np.array(v, np.uint32) for v in views],
+                    weights=[np.array(w, np.float32) for w in (weights or [])])
+    if normals is not None:
+        pc.normals = np.array(normals, np.float32, order="C").reshape(-1, 3)
+    if colors is not None:
+        pc.colors = np.array(colors, np.uint8, order="C").reshape(-1, 3)
+    return pc
+
+
+def pointcloud_to_numpy(pc: PointCloud) -> dict:
+    """The fields of a port ``PointCloud`` as numpy copies under the names
+    of the JAX package's ``PointCloud`` (``points``, ``views``, ``weights``,
+    ``normals``, ``colors``), so ``PointCloud(**pointcloud_to_numpy(pc))``
+    builds either package's."""
+    return dict(points=np.array(pc.points, np.float32, order="C"),
+                views=[np.array(v, np.uint32) for v in pc.views],
+                weights=[np.array(w, np.float32) for w in pc.weights],
+                normals=np.array(pc.normals, np.float32, order="C"),
+                colors=np.array(pc.colors, np.uint8, order="C"))

@@ -11,8 +11,10 @@ neighbour pairs, fused per view (``estimate_depth_map_sgm``), with the
 pairs' disparities cached as ``.dimap`` files beside the depth maps.
 
 Estimation runs on ``device`` (the card by default); filters and fusion
-are host numpy, as in the JAX package. Not ported yet: multi-device and
-sharded paths, mesh-visibility seeding, loading images from disk, and the
+are host numpy, as in the JAX package. A scene with a mesh and no point
+cloud seeds from the mesh's visible samples (``sample_mesh_with_visibility``);
+``export_mesh_to_depth_maps`` renders the mesh into every view. Not ported
+yet: multi-device and sharded paths, loading images from disk, and the
 verbose depth-map image dumps.
 """
 
@@ -601,6 +603,16 @@ def dense_reconstruction(
         if img.gray is None:
             img.load(max_dim=max_dim)
 
+    _mesh = getattr(scene, "mesh", None)
+    if len(scene.pointcloud) == 0 and _mesh is not None and len(
+            getattr(_mesh, "faces", ())):
+        # mesh-but-no-cloud scenes: sample the mesh WITH VISIBILITY to seed
+        # estimation (SampleMeshWithVisibility, Scene.cpp:634-741, used by
+        # ComputeDepthMaps at SceneDensify.cpp:1756-1766)
+        with timed(log, "sample mesh with visibility"):
+            scene.pointcloud = sample_mesh_with_visibility(scene)
+        log.info("mesh visibility seeding: %d points", len(scene.pointcloud))
+
     with timed(log, "select views"):
         select_views_for_scene(scene, opts, respect_existing=respect_neighbors)
 
@@ -736,6 +748,129 @@ def dense_reconstruction(
                 os.remove(p)
     log.info("dense point cloud: %d points", len(pc))
     return pc
+
+
+def sample_mesh_with_visibility(scene: Scene, n_samples: int = 60_000,
+                                seed: int = 0) -> PointCloud:
+    """Area-weighted mesh surface samples with per-view visibility from
+    z-buffer renders (Scene::SampleMeshWithVisibility, Scene.cpp:634-741):
+    a sample sees view V when its projected depth matches V's rasterized
+    mesh depth within 1%.  Samples visible in <2 views are dropped."""
+    from openmvs_tpu_torch import mesh_ops, native
+
+    pts, _ = mesh_ops.sample_points(scene.mesh, n_samples, seed=seed)
+    P = pts.astype(np.float64)
+    vis = []
+    for img in scene.images:
+        cam = img.camera if img.camera is not None else img.working_camera()
+        W, H = img.width or 640, img.height or 480
+        verts = scene.mesh.vertices.astype(np.float64)
+        Xc = (verts - cam.C) @ cam.R.T
+        z = np.maximum(Xc[:, 2], 1e-12)
+        proj = np.stack([cam.K[0, 0] * Xc[:, 0] / z + cam.K[0, 2]
+                         + cam.K[0, 1] * Xc[:, 1] / z,
+                         cam.K[1, 1] * Xc[:, 1] / z + cam.K[1, 2],
+                         Xc[:, 2]], -1)
+        _, zmap, _ = native.rasterize(proj, scene.mesh.faces, H, W,
+                                      want_bary=False)
+        Xp = (P - cam.C) @ cam.R.T
+        zp = Xp[:, 2]
+        front = zp > 1e-9
+        u = np.where(front, cam.K[0, 0] * Xp[:, 0] / np.where(front, zp, 1)
+                     + cam.K[0, 2], -1)
+        v = np.where(front, cam.K[1, 1] * Xp[:, 1] / np.where(front, zp, 1)
+                     + cam.K[1, 2], -1)
+        ui = np.round(u).astype(np.int64)
+        vi = np.round(v).astype(np.int64)
+        ok = front & (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+        zs = zmap[np.clip(vi, 0, H - 1), np.clip(ui, 0, W - 1)]
+        vis.append(ok & (zs > 0) & (np.abs(zs - zp) < 0.01 * zp))
+    vis = np.stack(vis, axis=1)                      # (N, n_views)
+    ids = np.array([im.meta.id for im in scene.images], np.uint32)
+    count = vis.sum(axis=1)
+    keep = count >= 2
+    pc = PointCloud()
+    pc.points = pts[keep]
+    pc.views = [ids[v] for v in vis[keep]]
+    pc.weights = [np.ones(int(c), np.float32) for c in count[keep]]
+    return pc
+
+
+def export_mesh_to_depth_maps(scene: Scene, base_name: str,
+                              opts: DenseOptions = DenseOptions()) -> int:
+    """Render the scene mesh into every view and save per-image depth maps
+    (Scene::ExportMeshToDepthMaps, Scene.cpp:680-736).  Output format by
+    extension: .dmap (full codec incl. interpolated camera-space normals),
+    .pfm (raw float), anything else = normalized 8-bit visualization.
+    Files are written as base0000.ext, base0001.ext, ... Returns the count.
+    The port writes the visualization as PNG only (``io/png``; the JAX
+    package writes any format OpenCV does): other extensions raise before
+    any file is written."""
+    from openmvs_tpu_torch import mesh_ops, native
+    from openmvs_tpu_torch.io import png
+    from openmvs_tpu_torch.texture import _project
+
+    mesh = scene.mesh
+    if mesh is None or not len(getattr(mesh, "faces", ())):
+        raise ValueError("scene has no mesh to render")
+    stem, ext = os.path.splitext(base_name)
+    ext_l = ext.lower()
+    if ext_l not in (".dmap", ".pfm", ".png"):
+        raise NotImplementedError(
+            f"{base_name}: 8-bit depth visualizations are written as .png only; "
+            "other image formats wait for the port's image codecs (ROADMAP "
+            "Queue 1, item 4)")
+    vnorm = (mesh_ops.vertex_normals(mesh.vertices, mesh.faces)
+             if ext_l == ".dmap" else None)
+
+    w0 = max(im.width for im in scene.images)
+    h0 = max(im.height for im in scene.images)
+    max_dim = imio.compute_max_resolution(
+        w0, h0, opts.resolution_level, opts.min_resolution, opts.max_resolution)
+    n = 0
+    for img in scene.images:
+        if img.gray is None:
+            img.load(max_dim=max_dim)
+        cam = img.working_camera()
+        H, W = img.gray.shape
+        proj = _project(cam, mesh.vertices.astype(np.float64))
+        fid, depth, bary = native.rasterize(proj, mesh.faces, H, W,
+                                            want_bary=ext_l == ".dmap")
+        depth = np.where(fid >= 0, depth, 0.0).astype(np.float32)
+        out = f"{stem}{img.meta.id:04d}{ext}"
+        if ext_l == ".dmap":
+            # interpolate vertex normals, rotate into camera space (the
+            # .dmap convention, ExportDepthDataRaw)
+            nrm = np.zeros((H, W, 3), np.float32)
+            sel = fid >= 0
+            tri = mesh.faces[fid[sel]]
+            nw = np.einsum("pk,pkc->pc", bary[sel], vnorm[tri])
+            nc = nw @ cam.R.T
+            nc /= np.maximum(np.linalg.norm(nc, axis=1, keepdims=True), 1e-12)
+            nrm[sel] = nc.astype(np.float32)
+            d_valid = depth[depth > 0]
+            dd = dmapio.DepthData(
+                depth=depth, image_width=W, image_height=H,
+                depth_min=float(d_valid.min()) if len(d_valid) else 0.001,
+                depth_max=float(d_valid.max()) if len(d_valid) else 1.0,
+                file_name=img.meta.name,
+                view_ids=np.array(
+                    [img.meta.id] + [vs.id for vs in (img.meta.view_scores
+                                                      or [])], np.uint32),
+                K=cam.K, R=cam.R, C=cam.C, normal=nrm,
+            )
+            dmapio.save(dd, out)
+        elif ext_l == ".pfm":
+            imio.save_pfm(out, depth)
+        else:
+            v = depth[depth > 0]
+            lo, hi = (v.min(), v.max()) if len(v) else (0.0, 1.0)
+            vis = np.where(depth > 0,
+                           255 - (depth - lo) / max(hi - lo, 1e-9) * 223, 0)
+            png.write(out, vis.astype(np.uint8))
+        n += 1
+    log.info("mesh rendered into %d depth maps (%s)", n, base_name)
+    return n
 
 
 def _dmap_fusion_loader(scene: Scene, folder: str, meta_list):

@@ -9,7 +9,8 @@ integer factors and fractional area weights otherwise. ``box_blur`` and
 float32 images (texturing's seam leveling and sharpening), with OpenCV's
 default border (BORDER_REFLECT_101, scipy's ``mirror``).
 ``warp_perspective`` stands for ``cv2.warpPerspective`` on a float32 gray
-image (SGM's pair rectification).
+image (SGM's pair rectification). ``save_pfm`` and ``load_pfm`` are copies
+of ``openmvs_tpu/io/images.py:121-141``.
 """
 
 from __future__ import annotations
@@ -80,6 +81,29 @@ def compute_max_resolution(width: int, height: int, level: int, min_res: int, ma
     if max_res > 0 and scaled > max_res:
         scaled = max_res
     return scaled
+
+
+def save_pfm(path: str, data: np.ndarray) -> None:
+    """Write a single-channel PFM (little-endian, bottom-up row order as the
+    PFM spec mandates; the reference's DepthMap::Save uses the same format)."""
+    data = np.asarray(data, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n")
+        f.write(f"{data.shape[1]} {data.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        f.write(np.flipud(data).tobytes())
+
+
+def load_pfm(path: str) -> np.ndarray:
+    """Read a single-channel PFM written by save_pfm (or any scanline PFM)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"Pf":
+            raise ValueError("not a single-channel PFM")
+        w, h = map(int, f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(f.read(w * h * 4),
+                             "<f4" if scale < 0 else ">f4").reshape(h, w)
+    return np.flipud(data).copy()
 
 
 def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:

@@ -262,3 +262,27 @@ def pair_disparities(folder: str) -> dict:
 
     return {f: dimap.load(os.path.join(folder, f)).disparity
             for f in sorted(os.listdir(folder)) if f.endswith(".dimap")}
+
+
+def port_scene_from_jax(jscene):
+    """Port Scene with the cameras, image sizes and pixels (where loaded)
+    of a JAX-package Scene, its point cloud (``convert.pointcloud_from_numpy``)
+    and its mesh."""
+    from openmvs_tpu_torch.geometry.camera import Camera
+    from openmvs_tpu_torch.io.mvs import ImageMeta
+    from openmvs_tpu_torch.scene import Scene, SceneImage
+
+    scene = Scene()
+    for im in jscene.images:
+        cam = im.camera
+        scene.images.append(SceneImage(
+            meta=ImageMeta(name=im.meta.name, platform_id=im.meta.platform_id,
+                           id=im.meta.id),
+            camera=Camera(cam.K, cam.R, cam.C), width=im.width, height=im.height,
+            gray=im.gray, color=im.color))
+    pc = jscene.pointcloud
+    scene.pointcloud = convert.pointcloud_from_numpy(
+        pc.points, pc.views, pc.weights,
+        pc.normals if pc.has_normals else None, pc.colors if pc.has_colors else None)
+    scene.mesh = convert.mesh_from_numpy(jscene.mesh.vertices, jscene.mesh.faces)
+    return scene

@@ -1,6 +1,9 @@
-"""The first build of the JAX package's native library under parallel test
-workers: ``_torch_helpers.build_native_locked`` serialises it across
-processes, so concurrent first builds on a fresh tree share one library."""
+"""The first build of the native libraries under parallel test workers.
+The JAX package's: ``_torch_helpers.build_native_locked`` serialises it
+across processes. The port's (``openmvs_tpu_torch/native``, the graph
+cut, decimation and rasterizer): its own ``build`` takes an ``flock``
+beside the library. Either way, concurrent first builds on a fresh tree
+compile once and share one library."""
 
 import ctypes
 import shutil
@@ -48,3 +51,33 @@ def test_repo_library_is_fresh_after_collection():
     """Collection built the repo's library, so no later call rebuilds it."""
     path, built = build_native_locked()
     assert Path(path).is_file() and not built
+
+
+_PORT_CHILD = """
+import json, sys
+sys.path[:0] = [{repo!r}]
+from pathlib import Path
+from openmvs_tpu_torch import native
+native.BUILD_DIR = Path({build!r})
+compiles = []
+run = native.subprocess.run
+native.subprocess.run = lambda cmd, **kw: (compiles.append(cmd[0]), run(cmd, **kw))[1]
+path = native.build()
+native._load()          # the library loads and binds every entry point
+print(json.dumps([str(path), len(compiles)]))
+"""
+
+
+def test_port_concurrent_first_builds_compile_once(tmp_path):
+    code = _PORT_CHILD.format(repo=str(REPO), build=str(tmp_path / "native"))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(5)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-2000:] for _, err in outs]
+    results = [tuple(__import__("json").loads(out.strip().splitlines()[-1]))
+               for out, _ in outs]
+    paths = {path for path, _ in results}
+    assert len(paths) == 1 and Path(paths.pop()).name == "omvs_native.so"
+    assert sum(n for _, n in results) == 1                # one process compiled
+    assert not list((tmp_path / "native").rglob("*.tmp"))

@@ -420,12 +420,23 @@ def test_refine_planar_pruning():
 
 
 @pytest.mark.parametrize("opts", [dict(decimate=0.5), dict(ensure_edge_size=2)])
-def test_refine_unported_conditioning_raises(case, opts):
+def test_refine_conditioning_runs(case, opts, monkeypatch):
+    """With ``decimate > 0`` or ``ensure_edge_size >= 2``, refine_mesh's
+    first scale starts from ``condition_mesh``'s mesh, which differs from
+    the input (tests/test_torch_mesh_chain.py holds it equal to the JAX
+    package's)."""
+    from openmvs_tpu_torch import refine
     from openmvs_tpu_torch.config import RefineOptions
     from openmvs_tpu_torch.convert import mesh_from_numpy
-    from openmvs_tpu_torch.refine import refine_mesh
 
     scene, _, gt, _ = case
-    with pytest.raises(NotImplementedError):
-        refine_mesh(scene, mesh_from_numpy(gt.vertices, gt.faces),
-                    RefineOptions(**opts), device="cpu")
+    mesh = mesh_from_numpy(gt.vertices, gt.faces)
+    seen = []
+    monkeypatch.setattr(refine, "_refine_at_scale",
+                        lambda s, m, *a: (seen.append(m) or m, 0, 0))
+    out = refine.refine_mesh(scene, mesh, RefineOptions(**opts), device="cpu")
+    want = refine.condition_mesh(mesh, RefineOptions(**opts))
+    assert np.array_equal(seen[0].vertices, want.vertices)
+    assert np.array_equal(seen[0].faces, want.faces)
+    assert np.array_equal(out.faces, want.faces)
+    assert len(want.faces) != len(gt.faces)
