@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
-texturing and SGM densify paths, and the whole chain densify -> mesh ->
-clean -> refine -> texture -> save, on one NVIDIA GPU.
+texturing and SGM densify paths, the whole chain densify -> mesh -> clean
+-> refine -> texture -> save, and the same chain from files through the
+port's CLI, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,25 @@ Phases, each printing one JSON line:
                   fidelity as phase texture holds it. Meshing, cleaning and
                   the codecs are host code (no Pallas kernel in the JAX
                   package): no kernel is added
-Each of phases 4, 5, 7, 9 and 12 sets the launch counts to 0 just before
+ 14. files      - the port run from files as a user runs it: the colored
+                  scene at 1280x960 written as 5 JPEGs (quality 95, PIL;
+                  their sha256 printed) and scene.mvs, then densify through
+                  openmvs_tpu_torch.__main__.main(["densify", "scene.mvs"])
+                  (images decoded and brought to 640x480; launches as phase
+                  densify's, tower and ROI outcomes, peak memory), and
+                  mesh --decimate 0.5, refine --scales 2 --iters 16 and
+                  texture as `python -m openmvs_tpu_torch` commands on the
+                  full images (seconds per command and stage, peak memory);
+                  the loading layer timed (decode, area resize, to_gray,
+                  .mvs read and write). Holds, from the JAX package's CLI
+                  on the same files (tests/_torch_cli_quality.py): points
+                  and faces within 5%, the cloud's and the meshes' height
+                  error at most 1.05x and shares at least 0.98x,
+                  refinement not raising the error, color fidelity as
+                  phase texture holds it (_file_color_fidelity: the labels
+                  do not survive the files); scene_dense.mvs read back
+                  equals the cloud densify held
+Each of phases 4, 5, 7, 9, 12 and 14 sets the launch counts to 0 just before
 the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
@@ -182,6 +201,32 @@ JAX_REFINED_HEIGHT_ERROR = 0.006546988798596461
 JAX_REFINED_WITHIN = 0.7856228892664611
 JAX_PIPELINE_FIDELITY = 1.6666666666666667
 JAX_PIPELINE_WITHIN = 0.9787213881109309
+
+# The JAX package's CLI figures for phase files: synthetic.write_scene_files
+# (5 views of 1280x960, JPEG quality 95 through PIL 12.1.0, scene.mvs), then
+# python -m openmvs_tpu densify scene.mvs; mesh scene_dense.mvs --decimate
+# 0.5; refine ... --scales 2 --iters 16; texture ..., on the CPU (8 cores),
+# measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_cli_quality.py
+# (densify 574.1 s, mesh 67.7, refine 117.7, texture 23.0): the dense
+# points, _mesh_height_quality of the points, of the clean and of the
+# refined mesh, the raw faces (the meshing log's "surface:" line), the clean
+# faces, and _file_color_fidelity of the textured mesh; and the sha256 of
+# the JPEGs they came from
+JAX_CLI_JPEG_SHA256 = {
+    "view0000.jpg": "9de099d30b07695e202d4f871a4632a3b5f3631ff25836ede0c960b2020cfa3f",
+    "view0001.jpg": "eb48a81bc858675669f3c77ef46b276444d40d3b9ee1839a0ac989d170add305",
+    "view0002.jpg": "1b4c93437ab69e22596db72330c0ebbfcc69db08cebee6b306b9d2e4675e5eaa",
+    "view0003.jpg": "dacdd55af21adfafb81a8935ce60d114ccafa889b71f2583676769227ec0c7ff",
+    "view0004.jpg": "b31c3e6c6a726f452675c995e3f5efa76bfe47acc6bcdf13a6423f432799eb97",
+}
+JAX_CLI = {"points": 288104, "cloud_height_error": 0.008126990339840809,
+           "cloud_within": 0.6841376498868381, "raw_faces": 351427,
+           "clean_faces": 175736, "clean_height_error": 0.00848924974199139,
+           "clean_within": 0.6660122811422832,
+           "refined_height_error": 0.008393922736098272,
+           "refined_within": 0.6703529174735005, "color_fidelity": 1.0,
+           "faces_within": 0.9934165962234999}
 
 # Per-view (accuracy, completeness) of the JAX package's SGM estimator on
 # phase densify's scene (480x640, 5 views, DenseOptions(estimator="sgm")),
@@ -1432,6 +1477,44 @@ def _color_fidelity(mesh, labels, images):
     return float(np.median(err)), float((err <= FIDELITY_BOUND).mean())
 
 
+def _file_color_fidelity(mesh, images):
+    """Color fidelity of a textured mesh read back from its files, where the
+    labels are not at hand: per face whose centroid lies in the height
+    field's domain, the mean |atlas color - source color| (over RGB) at the
+    centroid against each view whose image holds the projected centroid,
+    the least over those views. Returns the median over the faces and the
+    share within FIDELITY_BOUND. Duck-typed, as _color_fidelity."""
+    import numpy as np
+
+    from openmvs_tpu_torch.texture import _project
+
+    nf = len(mesh.faces)
+    pages = mesh.textures if mesh.textures is not None else [mesh.texture]
+    page = (np.asarray(mesh.face_page) if mesh.face_page is not None
+            else np.zeros(nf, np.int64))
+    cen = np.asarray(mesh.vertices, np.float64)[np.asarray(mesh.faces)].mean(axis=1)
+    fi = np.nonzero((np.abs(cen[:, 0]) <= 3.0) & (np.abs(cen[:, 1]) <= 3.0))[0]
+    tc = np.asarray(mesh.face_tex_coords)[fi].mean(axis=1)
+    atlas_col = np.zeros((len(fi), 3))
+    for pg, tex in enumerate(pages):
+        sel = page[fi] == pg
+        th, tw = tex.shape[:2]
+        tx = np.clip((tc[sel, 0] * tw).astype(np.int64), 0, tw - 1)
+        ty = np.clip(((1 - tc[sel, 1]) * th).astype(np.int64), 0, th - 1)
+        atlas_col[sel] = tex[ty, tx]
+    err = np.full(len(fi), np.inf)
+    for img in images:
+        h, w = img.color.shape[:2]
+        pr = _project(img.working_camera(), cen[fi])
+        ok = (pr[:, 2] > 0) & (pr[:, 0] >= 0) & (pr[:, 0] < w) & (pr[:, 1] >= 0) & (pr[:, 1] < h)
+        pu = np.clip(pr[:, 0].astype(np.int64), 0, w - 1)
+        pv = np.clip(pr[:, 1].astype(np.int64), 0, h - 1)
+        e = np.abs(atlas_col - img.color[pv, pu]).mean(axis=1)
+        err = np.where(ok, np.minimum(err, e), err)
+    err = err[np.isfinite(err)]
+    return float(np.median(err)), float((err <= FIDELITY_BOUND).mean())
+
+
 def _face_pixels(scene, mesh):
     """How large the mesh's faces are in the views: the pixel centres the
     rasterizer gives each (face, view) (what compute_face_qualities sums the
@@ -2008,6 +2091,217 @@ def phase_pipeline(card, scene, colored, pc):
         raise RuntimeError(f"saved files read back differently: {saved}")
 
 
+def _cli(args, timeout=900):
+    """``python -m openmvs_tpu_torch <args>`` in a process of its own, from
+    the checkout: (wall s, {stage: s} from its log, its log lines). Raises
+    with the end of its output where it fails."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "openmvs_tpu_torch"] + args, cwd=REPO,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"python -m openmvs_tpu_torch {' '.join(args)} exited "
+                           f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    lines = [ln.split(": ", 1)[1] for ln in r.stderr.splitlines() if ": " in ln]
+    stages = {}
+    for ln in lines:
+        m = re.match(r"(.*) \(([0-9.]+)s\)$", ln)
+        if m:
+            stages[m.group(1)] = float(m.group(2))
+    return wall, stages, lines
+
+
+def _peak(lines):
+    found = [int(m.group(1)) for m in
+             (re.match(r"peak device memory (\d+) bytes", ln) for ln in lines) if m]
+    return found[-1] if found else None
+
+
+def _clouds_equal(a, b):
+    import numpy as np
+
+    return bool(np.array_equal(a.points, b.points)
+                and len(a.views) == len(b.views)
+                and all(np.array_equal(x, y) for x, y in zip(a.views, b.views))
+                and all(np.array_equal(x, y) for x, y in zip(a.weights, b.weights))
+                and np.array_equal(a.normals, b.normals)
+                and np.array_equal(a.colors, b.colors))
+
+
+def _time_loading(scene, out_mvs):
+    """Seconds of the loading layer over the scene's images and its .mvs:
+    decoding (io/images.load_color), the area resize to densify's 640x480,
+    to_gray at that size, Scene.load of the .mvs and Scene.save of it."""
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.scene import Scene
+
+    t = {"decode": 0.0, "resize_area": 0.0, "to_gray": 0.0}
+    for img in scene.images:
+        t0 = time.perf_counter()
+        color = imio.load_color(img.path)
+        t1 = time.perf_counter()
+        small = imio.resize_area(color, color.shape[1] // 2, color.shape[0] // 2)
+        t2 = time.perf_counter()
+        imio.to_gray(small)
+        t3 = time.perf_counter()
+        t["decode"] += t1 - t0
+        t["resize_area"] += t2 - t1
+        t["to_gray"] += t3 - t2
+    t0 = time.perf_counter()
+    scene.save(out_mvs)
+    t["mvs_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Scene.load(out_mvs)
+    t["mvs_read"] = time.perf_counter() - t0
+    return t
+
+
+def phase_files(card):
+    """The port run as a user runs it, from files: the colored synthetic
+    scene written as 5 JPEGs of 1280x960 (quality 95, PIL) and scene.mvs,
+    densify through ``openmvs_tpu_torch.__main__.main`` in this process
+    (launch counts set to 0 just before and read just after), then mesh,
+    refine and texture as ``python -m openmvs_tpu_torch`` commands; held
+    to the JAX package's CLI figures on the same files (JAX_CLI)."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import __main__ as cli
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.io import obj as objio
+    from openmvs_tpu_torch.io import ply as plyio
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.scene import Mesh, Scene
+    from openmvs_tpu_torch.synthetic import write_scene_files
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mvs, digests, _, _ = write_scene_files(tmp, 5, 1280, 960)
+        build_s = time.perf_counter() - t0
+        for name, digest in sorted(digests.items()):
+            print(f"sha256 {name} {digest}", flush=True)
+
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # densify in this process, through the CLI's main
+        held = {}
+        dense = densify.dense_reconstruction
+        score = patchmatch.score_hypotheses
+        calls = [0]
+
+        def keep(scene, *a, **kw):
+            held["pc"] = dense(scene, *a, **kw)
+            held["views"] = [(im.width, im.height, im.gray.shape) for im in scene.images]
+            return held["pc"]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return score(*a, **kw)
+
+        stage_log = _StageLog()
+        logger = logging.getLogger("omvs_torch")
+        logger.addHandler(stage_log)
+        densify.dense_reconstruction = keep
+        patchmatch.score_hypotheses = counted
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pm_kernel.reset_launches()
+            t0 = time.perf_counter()
+            cli.main(["densify", mvs])
+            torch.cuda.synchronize()
+            densify_s = time.perf_counter() - t0
+            launches = dict(pm_kernel.LAUNCHES)
+        finally:
+            densify.dense_reconstruction = dense
+            patchmatch.score_hypotheses = score
+            logger.removeHandler(stage_log)
+        densify_peak = torch.cuda.max_memory_allocated()
+        pc = held["pc"]
+        outcomes = [m for m in stage_log.messages
+                    if re.search(r"tower|ROI|unbounded|camera directions", m)]
+        t0 = time.perf_counter()
+        back = Scene.load(path("scene_dense.mvs"))
+        ply_back = plyio.load(path("scene_dense.ply"))
+        read_s = time.perf_counter() - t0
+        dense_equal = {"scene_dense.mvs": _clouds_equal(back.pointcloud, pc),
+                       "scene_dense.ply": bool(np.array_equal(ply_back.vertices, pc.points))}
+
+        dense_mvs = path("scene_dense.mvs")
+        commands = {
+            "mesh": ["mesh", dense_mvs, "--decimate", "0.5", "-o", path("mesh.ply")],
+            "refine": ["refine", dense_mvs, "-m", path("mesh.ply"), "--scales", "2",
+                       "--iters", "16", "-o", path("refined.ply")],
+            "texture": ["texture", dense_mvs, "-m", path("refined.ply"),
+                        "-o", path("textured.obj")],
+        }
+        runs = {name: _cli(args) for name, args in commands.items()}
+        raw = [re.match(r"surface: (\d+) vertices, (\d+) faces", ln)
+               for ln in runs["mesh"][2]]
+        raw_faces = int([m for m in raw if m][-1].group(2))
+        clean = plyio.load(path("mesh.ply"))
+        refined = plyio.load(path("refined.ply"))
+        v, f, tc, tex = objio.load_mesh_obj(path("textured.obj"))
+        textured = Mesh(vertices=v, faces=f, face_tex_coords=tc, texture=tex)
+        loading = _time_loading(back, path("rewritten.mvs"))
+        for img in back.images:
+            img.load()
+        fidelity, within = _file_color_fidelity(textured, back.images)
+        sizes = {n: os.path.getsize(path(n)) for n in sorted(os.listdir(tmp))}
+    q_cloud = _mesh_height_quality(pc.points)
+    q_clean = _mesh_height_quality(clean.vertices)
+    q_refined = _mesh_height_quality(refined.vertices)
+    got = {"points": len(pc), "cloud_height_error": q_cloud[0], "cloud_within": q_cloud[1],
+           "raw_faces": raw_faces, "clean_faces": len(clean.faces),
+           "clean_height_error": q_clean[0], "clean_within": q_clean[1],
+           "refined_height_error": q_refined[0], "refined_within": q_refined[1],
+           "color_fidelity": fidelity, "faces_within": within}
+    rec = {"phase": "files", "views": 5, "image_W": 1280, "image_H": 960,
+           "densify_working_size": held["views"][0],
+           "jpeg_sha256": digests, "jpeg_equal_to_jax_run": digests == JAX_CLI_JPEG_SHA256,
+           "scene_build_s": build_s,
+           "densify": {"wall_s": densify_s, "stages_s": stage_log.stages,
+                       "launches": launches, "score_hypotheses_calls": calls[0],
+                       "max_memory_allocated_bytes": densify_peak,
+                       "tower_and_roi": outcomes, "read_back_s": read_s,
+                       "saved_equal": dense_equal},
+           "commands": {name: {"wall_s": w, "stages_s": st, "max_memory_allocated_bytes":
+                               _peak(lines)} for name, (w, st, lines) in runs.items()},
+           "loading_s": loading, "file_bytes": sizes, "results": got, "jax": JAX_CLI,
+           "fidelity_bound": FIDELITY_BOUND, "height_tol": HEIGHT_TOL,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(rec)
+    if held["views"][0][2] != (480, 640):
+        raise RuntimeError(f"densify worked at {held['views'][0]}, not 480x640")
+    if any(launches[k] == 0 for k in MAIN_PATH):
+        raise RuntimeError(f"a scorer kernel was not launched through the CLI: {launches}")
+    _check_scoring(launches, calls[0])
+    if not all(dense_equal.values()):
+        raise RuntimeError(f"the saved dense scene reads back differently: {dense_equal}")
+    for k in ("points", "raw_faces", "clean_faces"):
+        if abs(got[k] - JAX_CLI[k]) > 0.05 * JAX_CLI[k]:
+            raise RuntimeError(f"{k} {got[k]}: not within 5% of the JAX CLI's {JAX_CLI[k]}")
+    for k in ("cloud", "clean", "refined"):
+        if not got[f"{k}_height_error"] <= 1.05 * JAX_CLI[f"{k}_height_error"]:
+            raise RuntimeError(f"{k} height error {got[f'{k}_height_error']} above 1.05x the "
+                               f"JAX CLI's {JAX_CLI[f'{k}_height_error']}")
+        if not got[f"{k}_within"] >= 0.98 * JAX_CLI[f"{k}_within"]:
+            raise RuntimeError(f"{k} share within {HEIGHT_TOL} {got[f'{k}_within']} below "
+                               f"0.98x the JAX CLI's {JAX_CLI[f'{k}_within']}")
+    if not q_refined[0] <= q_clean[0]:
+        raise RuntimeError(f"refinement raised the height error: {q_clean[0]} -> {q_refined[0]}")
+    if not fidelity <= 1.02 * JAX_CLI["color_fidelity"]:
+        raise RuntimeError(f"color fidelity {fidelity} above 1.02x the JAX CLI's "
+                           f"{JAX_CLI['color_fidelity']}")
+    if not within >= 0.98 * JAX_CLI["faces_within"]:
+        raise RuntimeError(f"{within} of faces within {FIDELITY_BOUND} of a view's color, "
+                           f"below 0.98x the JAX CLI's {JAX_CLI['faces_within']}")
+    if not np.isfinite(np.asarray(refined.vertices)).all():
+        raise RuntimeError("refine produced non-finite vertices")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -2040,6 +2334,7 @@ def main():
     phase_texture(card, colored)
     phase_sgm(card, scene, gts)
     phase_pipeline(card, scene, colored, dense)
+    phase_files(card)
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

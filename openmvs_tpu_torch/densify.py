@@ -14,8 +14,8 @@ Estimation runs on ``device`` (the card by default); filters and fusion
 are host numpy, as in the JAX package. A scene with a mesh and no point
 cloud seeds from the mesh's visible samples (``sample_mesh_with_visibility``);
 ``export_mesh_to_depth_maps`` renders the mesh into every view. Not ported
-yet: multi-device and sharded paths, loading images from disk, and the
-verbose depth-map image dumps.
+yet: multi-device and sharded paths, and the verbose depth-map image
+dumps.
 """
 
 from __future__ import annotations
@@ -62,14 +62,6 @@ def _resize_gray(gray: np.ndarray, scale: float) -> np.ndarray:
         return gray
     h, w = gray.shape
     return imio.resize_area(gray, max(1, round(w * scale)), max(1, round(h * scale)))
-
-
-def _resize_nearest_mask(m: np.ndarray, W: int, H: int) -> np.ndarray:
-    """cv::INTER_NEAREST resize of a mask: source index floor(dst * src/dst)."""
-    h, w = m.shape
-    ys = np.minimum(np.floor(np.arange(H) * (h / H)).astype(np.int64), h - 1)
-    xs = np.minimum(np.floor(np.arange(W) * (w / W)).astype(np.int64), w - 1)
-    return m[ys[:, None], xs[None, :]]
 
 
 def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -182,7 +174,7 @@ def _assemble_pm_host(ref_gray: np.ndarray, ref_cam: Camera,
     if usable is not None:
         um = usable
         if um.shape != (H, W):
-            um = _resize_nearest_mask(um, W, H)
+            um = imio.resize_nearest(um, W, H)
 
     return dict(
         ref_gray=ref_gray.astype(np.float32), images=images, sizes=sizes,
@@ -803,11 +795,10 @@ def export_mesh_to_depth_maps(scene: Scene, base_name: str,
     extension: .dmap (full codec incl. interpolated camera-space normals),
     .pfm (raw float), anything else = normalized 8-bit visualization.
     Files are written as base0000.ext, base0001.ext, ... Returns the count.
-    The port writes the visualization as PNG only (``io/png``; the JAX
-    package writes any format OpenCV does): other extensions raise before
-    any file is written."""
+    The visualization is written by ``io/images.write_image`` (PNG and SCI
+    by the port, other formats through PIL) where the JAX package calls
+    ``cv2.imwrite``."""
     from openmvs_tpu_torch import mesh_ops, native
-    from openmvs_tpu_torch.io import png
     from openmvs_tpu_torch.texture import _project
 
     mesh = scene.mesh
@@ -815,11 +806,6 @@ def export_mesh_to_depth_maps(scene: Scene, base_name: str,
         raise ValueError("scene has no mesh to render")
     stem, ext = os.path.splitext(base_name)
     ext_l = ext.lower()
-    if ext_l not in (".dmap", ".pfm", ".png"):
-        raise NotImplementedError(
-            f"{base_name}: 8-bit depth visualizations are written as .png only; "
-            "other image formats wait for the port's image codecs (ROADMAP "
-            "Queue 1, item 4)")
     vnorm = (mesh_ops.vertex_normals(mesh.vertices, mesh.faces)
              if ext_l == ".dmap" else None)
 
@@ -867,7 +853,7 @@ def export_mesh_to_depth_maps(scene: Scene, base_name: str,
             lo, hi = (v.min(), v.max()) if len(v) else (0.0, 1.0)
             vis = np.where(depth > 0,
                            255 - (depth - lo) / max(hi - lo, 1e-9) * 223, 0)
-            png.write(out, vis.astype(np.uint8))
+            imio.write_image(out, vis.astype(np.uint8))
         n += 1
     log.info("mesh rendered into %d depth maps (%s)", n, base_name)
     return n

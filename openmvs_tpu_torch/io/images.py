@@ -1,57 +1,202 @@
-"""Image resampling, filters and the working-resolution policy (host side,
-numpy and scipy).
+"""Image decoding, encoding, resampling and filters (host side, numpy and
+scipy).
 
-Counterpart of ``openmvs_tpu/io/images.py:97-117`` without OpenCV:
+Counterpart of ``openmvs_tpu/io/images.py`` without OpenCV. Reading
+follows ``cv2.imread``: ``load_color`` decodes PNG with the port's own
+``io/png`` and SCI (the reference's raw format, ``load_sci``/``save_sci``)
+here, and every other format (JPEG, TIFF, BMP, TGA, DDS, ...) through PIL,
+imported only when such a file is read or written; ``load_gray_u8`` is
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (a mask). ``to_gray`` is
+``cv2.cvtColor(RGB2GRAY)`` in OpenCV 5's 15-bit fixed point.
+``image_size`` reads a file's width and height from its header.
+``write_image`` stands for ``cv2.imwrite`` of 8-bit images.
+
 ``resize_area`` reproduces ``cv2.resize(..., interpolation=cv2.INTER_AREA)``
-for downscaling (the reference's area filter), an exact block mean for
-integer factors and fractional area weights otherwise. ``box_blur`` and
-``gaussian_blur`` stand for ``cv2.blur`` and ``cv2.GaussianBlur`` on
-float32 images (texturing's seam leveling and sharpening), with OpenCV's
-default border (BORDER_REFLECT_101, scipy's ``mirror``).
-``warp_perspective`` stands for ``cv2.warpPerspective`` on a float32 gray
-image (SGM's pair rectification). ``save_pfm`` and ``load_pfm`` are copies
-of ``openmvs_tpu/io/images.py:121-141``.
+for downscaling (the reference's area filter): uint8 images bit for bit
+(OpenCV's integer-factor path and its float32 table path), float images
+with fractional area weights in float64. ``resize_nearest`` is
+``cv2.INTER_NEAREST``. ``box_blur`` and ``gaussian_blur`` stand for
+``cv2.blur`` and ``cv2.GaussianBlur`` on float32 images (texturing's seam
+leveling and sharpening), with OpenCV's default border (BORDER_REFLECT_101,
+scipy's ``mirror``). ``warp_perspective`` stands for
+``cv2.warpPerspective`` on a float32 gray image (SGM's pair
+rectification). ``save_pfm`` and ``load_pfm`` are copies of
+``openmvs_tpu/io/images.py:121-141``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 from scipy import ndimage
 
+from openmvs_tpu_torch.io import png
+
+
+def _pil_image(path: str):
+    """PIL.Image, imported here: PIL decodes and encodes every format but
+    PNG and SCI. Raises ImportError naming ``path`` where PIL is missing."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: reading or writing this image format needs PIL "
+                          "(the port decodes only PNG and SCI itself)") from e
+    return Image
+
+
+def load_color(path: str) -> np.ndarray:
+    """An image file as RGB uint8 (h, w, 3), as ``cv2.imread(path,
+    cv2.IMREAD_COLOR)`` + BGR2RGB reads it (gray repeated, alpha dropped,
+    16-bit samples reduced to their high byte); SCI through ``load_sci``
+    (the JAX package's ``load_color``, openmvs_tpu/io/images.py:18-34)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".sci":
+        return load_sci(path)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"cannot read image: {path}")
+    if ext == ".png":
+        return png.to_rgb(png.read(path))
+    Image = _pil_image(path)
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def load_gray_u8(path: str) -> np.ndarray:
+    """A (h, w) uint8 image as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
+    reads it (a segmentation mask): a PNG through ``png.read_gray``, a JPEG
+    as libjpeg's luma (PIL's ``draft("L")``), other formats through PIL's
+    ``convert("L")``."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        return png.read_gray(path)
+    Image = _pil_image(path)
+    with Image.open(path) as im:
+        if im.format == "JPEG":
+            im.draft("L", im.size)
+        return np.asarray(im.convert("L"))
+
+
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """RGB uint8 -> float32 gray in [0, 1]: ``cv2.cvtColor(img,
+    cv2.COLOR_RGB2GRAY) / 255``, OpenCV 5's fixed point (R 9798 + G 19235 +
+    B 3735 + 2^14) >> 15."""
+    c = np.asarray(img, np.int32)
+    g = (c[..., 0] * 9798 + c[..., 1] * 19235 + c[..., 2] * 3735 + 16384) >> 15
+    return g.astype(np.uint8).astype(np.float32) / 255.0
+
+
+def image_size(path: str) -> tuple:
+    """(width, height) of an image file from its header, without decoding
+    (PNG and SCI read here; other formats through PIL)."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == png.SIGNATURE:
+        w, h = np.frombuffer(head[16:24], ">u4")
+        return int(w), int(h)
+    if int.from_bytes(head[:4], "little") == _SCI_MAGIC:
+        return (int.from_bytes(head[4:6], "little"),
+                int.from_bytes(head[6:8], "little"))
+    Image = _pil_image(path)
+    with Image.open(path) as im:
+        return im.size
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Save a uint8 (h, w) gray or (h, w, 3) RGB image by extension, as
+    ``cv2.imwrite`` would: PNG through ``io/png``, SCI through
+    ``save_sci``, other formats through PIL (JPEG at OpenCV's default
+    quality, 95)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: 8-bit images expected, got {img.dtype}")
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        png.write(path, img)
+        return
+    if ext == ".sci":
+        save_sci(path, img if img.ndim == 3 else np.repeat(img[..., None], 3, 2))
+        return
+    Image = _pil_image(path)
+    kw = {"quality": 95} if ext in (".jpg", ".jpeg") else {}
+    Image.fromarray(img).save(path, **kw)
+
+
+# SCI: the reference's internal raw image format (libs/IO/ImageSCI.cpp).
+# 12-byte header: u32 magic "SCI"+version(1), u16 width, u16 height,
+# u8 PIXELFORMAT, u8 mip levels, 2 reserved; then tightly-packed scanlines
+# (level 0 first).  PIXELFORMAT enum values from libs/IO/Image.h:30-52.
+_SCI_MAGIC = 0x01494353
+_SCI_FORMATS = {  # value -> (bytes/px, converter to RGB)
+    1: (1, lambda a: np.repeat(a, 3, axis=-1)),                    # PF_A8
+    2: (1, lambda a: np.repeat(a, 3, axis=-1)),                    # PF_GRAY8
+    4: (3, lambda a: a),                                           # PF_R8G8B8
+    5: (4, lambda a: a[..., :3]),                                  # PF_R8G8B8A8
+    6: (4, lambda a: a[..., 1:]),                                  # PF_A8R8G8B8
+    7: (3, lambda a: a[..., ::-1]),                                # PF_B8G8R8
+    8: (4, lambda a: a[..., 2::-1]),                               # PF_B8G8R8A8
+    9: (4, lambda a: a[..., :0:-1]),                               # PF_A8B8G8R8
+}
+
+
+def load_sci(path: str) -> np.ndarray:
+    """Read an uncompressed SCI image as RGB uint8 (h, w, 3)."""
+    with open(path, "rb") as f:
+        hdr = f.read(12)
+        if len(hdr) < 12:
+            raise ValueError(f"truncated SCI image: {path}")
+        magic, w, h, fmt, _levels = (
+            int.from_bytes(hdr[0:4], "little"),
+            int.from_bytes(hdr[4:6], "little"),
+            int.from_bytes(hdr[6:8], "little"),
+            hdr[8], hdr[9],
+        )
+        if magic != _SCI_MAGIC:
+            raise ValueError(f"invalid SCI image: {path}")
+        if fmt not in _SCI_FORMATS:
+            raise ValueError(f"unsupported SCI pixel format {fmt}: {path}")
+        stride, conv = _SCI_FORMATS[fmt]
+        data = np.frombuffer(f.read(w * h * stride), np.uint8)
+        if data.size < w * h * stride:
+            raise ValueError(f"truncated SCI image: {path}")
+        img = data.reshape(h, w, stride)
+    return np.ascontiguousarray(conv(img))
+
+
+def save_sci(path: str, rgb: np.ndarray) -> None:
+    """Write an RGB uint8 image as SCI PF_R8G8B8 (reference-loadable)."""
+    rgb = np.asarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    with open(path, "wb") as f:
+        f.write(_SCI_MAGIC.to_bytes(4, "little"))
+        f.write(int(w).to_bytes(2, "little"))
+        f.write(int(h).to_bytes(2, "little"))
+        f.write(bytes([4, 1, 0, 0]))  # PF_R8G8B8, 1 level
+        f.write(np.ascontiguousarray(rgb[..., :3]).tobytes())
+
 
 def _area_weights(ssize: int, dsize: int) -> np.ndarray:
-    """(dsize, ssize) area weights of one axis, as OpenCV's
-    computeResizeAreaTab builds them (fractions under 1e-3 are dropped)."""
-    scale = ssize / dsize
+    """(dsize, ssize) area weights of one axis, OpenCV's table as a matrix
+    (scale ssize / dsize)."""
+    di, si, alpha = _area_table(ssize, dsize, ssize / dsize)
     wts = np.zeros((dsize, ssize), np.float64)
-    for dx in range(dsize):
-        fsx1 = dx * scale
-        fsx2 = fsx1 + scale
-        cell = min(scale, ssize - fsx1)
-        sx1 = math.ceil(fsx1)
-        sx2 = min(math.floor(fsx2), ssize - 1)
-        sx1 = min(sx1, sx2)
-        if sx1 - fsx1 > 1e-3:
-            wts[dx, sx1 - 1] += np.float32((sx1 - fsx1) / cell)
-        for sx in range(sx1, sx2):
-            wts[dx, sx] += np.float32(1.0 / cell)
-        if fsx2 - sx2 > 1e-3:
-            wts[dx, sx2] += np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    wts[di, si] = alpha
     return wts
 
 
 def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """Downscale with area filtering (cv::INTER_AREA semantics).
 
-    Works on (h, w) and (h, w, c) arrays; integer inputs are rounded and
-    saturated like OpenCV's, float inputs keep their dtype."""
+    Works on (h, w) and (h, w, c) arrays; uint8 inputs come out as
+    OpenCV's, other integer inputs are rounded and saturated, float inputs
+    keep their dtype."""
     h, w = img.shape[:2]
     if (w, h) == (width, height):
         return img.copy()
     if width > w or height > h:
         raise ValueError("resize_area only downscales")
+    if img.dtype == np.uint8:
+        return _resize_area_u8(img, width, height)
     if img.dtype == np.float32 and (w, h) == (2 * width, 2 * height):
         # OpenCV's fast path for an exact halving of float data sums each
         # 2x2 block as (row 0 pair + row 1 pair), then scales by 1/4
@@ -66,6 +211,81 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
         info = np.iinfo(img.dtype)
         return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
     return out.astype(img.dtype)
+
+
+def _area_table(ssize: int, dsize: int, scale: float):
+    """OpenCV's computeResizeAreaTab as three arrays in its order: the
+    destination index, the source index and the float32 weight of each
+    entry (entries of one destination index are consecutive, their source
+    indices distinct; fractions under 1e-3 are dropped)."""
+    di, si, alpha = [], [], []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1 = math.ceil(fsx1)
+        sx2 = min(math.floor(fsx2), ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            di.append(dx), si.append(sx1 - 1), alpha.append((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            di.append(dx), si.append(sx), alpha.append(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            di.append(dx), si.append(sx2), alpha.append(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return np.array(di), np.array(si), np.array(alpha, np.float64).astype(np.float32)
+
+
+def _table_steps(di: np.ndarray):
+    """The table's entries grouped by their rank within their destination
+    index: OpenCV adds a destination's entries in table order, so step j
+    adds every destination's j-th entry at once."""
+    first = np.r_[0, np.flatnonzero(np.diff(di)) + 1]
+    rank = np.arange(len(di)) - np.repeat(first, np.diff(np.r_[first, len(di)]))
+    return [np.flatnonzero(rank == j) for j in range(int(rank.max()) + 1)]
+
+
+def _resize_area_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2.resize(INTER_AREA) of a uint8 image, to the bit. OpenCV takes
+    scale = 1 / (dst / src) per axis; where both are integers it sums each
+    block in integers and rounds (sum + 2) >> 2 for 2x2 blocks, else
+    scales the sum by float32(1 / area) and rounds half to even. Otherwise
+    it accumulates in float32 in its table order: each source row along x
+    (buf += src * alpha), then the rows into each destination row (sum =
+    beta * buf, then sum += beta * buf), rounded half to even."""
+    h, w = img.shape[:2]
+    src = img.reshape(h, w, -1)
+    sx, sy = 1.0 / (width / w), 1.0 / (height / h)
+    ix, iy = int(round(sx)), int(round(sy))
+    if abs(sx - ix) < np.finfo(float).eps and abs(sy - iy) < np.finfo(float).eps:
+        blocks = src.reshape(height, iy, width, ix, -1).astype(np.int64)
+        total = blocks.sum(axis=(1, 3))
+        if ix == iy == 2 and src.shape[2] in (1, 3, 4):
+            out = (total + 2) >> 2
+        else:
+            out = np.rint(total.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+        return np.clip(out, 0, 255).astype(np.uint8).reshape(
+            (height, width) + img.shape[2:])
+    xdi, xsi, xal = _area_table(w, width, sx)
+    ydi, ysi, yal = _area_table(h, height, sy)
+    s32 = src.astype(np.float32)
+    buf = np.zeros((h, width, src.shape[2]), np.float32)
+    for step in _table_steps(xdi):
+        buf[:, xdi[step]] += s32[:, xsi[step]] * xal[step][None, :, None]
+    out = np.zeros((height, width, src.shape[2]), np.float32)
+    for j, step in enumerate(_table_steps(ydi)):
+        term = yal[step][:, None, None] * buf[ysi[step]]
+        out[ydi[step]] = term if j == 0 else out[ydi[step]] + term
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(
+        (height, width) + img.shape[2:])
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2.resize(INTER_NEAREST): destination pixel x reads source
+    min(floor(x * (1 / (width / w))), w - 1), and likewise for y."""
+    h, w = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w))).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h))).astype(np.int64), h - 1)
+    return img[ys[:, None], xs[None, :]]
 
 
 def compute_max_resolution(width: int, height: int, level: int, min_res: int, max_res: int) -> int:

@@ -68,13 +68,14 @@ def save_mesh_obj(
 
 
 def _load_page(path: str) -> np.ndarray:
-    """An atlas page as (h, w, 3) RGB; PNG only (the JAX package decodes
-    any format PIL reads; the port's image codecs are still to be chosen)."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: only PNG atlas pages are read; other image formats "
-            "wait for the port's image decoding (ROADMAP Queue 1, item 4)")
-    return png.to_rgb(png.read(path))
+    """An atlas page as (h, w, 3) RGB: PNG through ``io/png``, any other
+    format through ``io/images.load_color`` (PIL), as the JAX package
+    decodes every page with PIL."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        return png.to_rgb(png.read(path))
+    from openmvs_tpu_torch.io.images import load_color
+
+    return load_color(path)
 
 
 def load_mesh_obj(path: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:

@@ -1,11 +1,14 @@
 """PNG encoder and decoder with ``zlib`` and ``struct`` alone.
 
-Stands in for PIL, which the JAX package's OBJ codec uses for its atlas
-pages (``openmvs_tpu/io/obj.py``): the port imports torch, numpy and scipy
+Stands in for PIL and OpenCV, which the JAX package uses for its atlas
+pages (``openmvs_tpu/io/obj.py``) and its images (``cv2.imread``,
+``openmvs_tpu/io/images.py``): the port imports torch, numpy and scipy
 only. ``write`` stores 8-bit gray, RGB or RGBA, each row with the Up
-filter. ``read`` decodes 8-bit gray, gray+alpha, RGB and RGBA, not
-interlaced, with all five row filters (PNG spec, section 9); anything else
-raises.
+filter. ``read`` decodes every PNG that ``cv2.imread(path,
+cv2.IMREAD_COLOR)`` reads, as it reads it: bit depths 1, 2, 4, 8 and 16
+(16-bit samples keep their high byte, gray below 8 bits is scaled to
+0-255), colour types 0, 2, 3 (palette; ``tRNS`` ignored), 4 and 6, with or
+without Adam7 interlacing, all five row filters (PNG spec, sections 7-9).
 """
 
 from __future__ import annotations
@@ -16,8 +19,6 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# color type -> channels (gray, RGB, gray+alpha, RGBA)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -25,8 +26,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write(path: str, img: np.ndarray) -> None:
-    """Save an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA uint8 image."""
+def encode(img: np.ndarray) -> bytes:
+    """The PNG file of an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA
+    uint8 image."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"png.write: uint8 pixels expected, got {img.dtype}")
@@ -41,26 +43,44 @@ def write(path: str, img: np.ndarray) -> None:
     up[:, 0] = 2                                     # the Up filter
     up[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=up[1:, 1:])  # wraps modulo 256
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(up.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write(path: str, img: np.ndarray) -> None:
+    """Save an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA uint8 image."""
+    data = encode(img)
     with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(up.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
-def read(path: str) -> np.ndarray:
-    """Decode a PNG to uint8 (h, w) for gray, else (h, w, channels)."""
+# color type -> channels (gray, RGB, palette index, gray+alpha, RGBA)
+_CHANNELS_IN = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _decode(path: str):
+    """(samples (h, w, c), color type, bit depth, palette or None): uint16
+    samples at depth 16, else uint8 samples as stored (palette indices, gray
+    below 8 bits unscaled)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos + 8 <= len(blob):
         n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
         data = blob[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
@@ -68,17 +88,92 @@ def read(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or interlace > 1:
         raise ValueError(f"{path}: bit depth {depth}, color type {ctype}, interlace "
-                         f"{interlace}: only 8-bit gray, gray+alpha, RGB and RGBA "
-                         "without interlacing are read")
-    c = _CHANNELS[ctype]
+                         f"{interlace} is not a valid PNG")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
+    c = _CHANNELS_IN[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * c):
-        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h}x{c}")
-    raw = raw.reshape(h, 1 + w * c)
-    img = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, c))
-    return img[..., 0] if c == 1 else img
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        nrow = (pw * c * depth + 7) // 8
+        part = raw[pos:pos + ph * (1 + nrow)]
+        pos += ph * (1 + nrow)
+        if part.size != ph * (1 + nrow):
+            raise ValueError(f"{path}: {raw.size} bytes of image data for "
+                             f"{w}x{h}, {c} channels of {depth} bits")
+        part = part.reshape(ph, 1 + nrow)
+        bpp = max(1, c * depth // 8)
+        rows = _unfilter(part[:, 0], part[:, 1:].reshape(ph, nrow // bpp, bpp))
+        samples[y0::dy, x0::dx] = _samples(rows.reshape(ph, nrow), pw, c, depth)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte[:256]
+        plte = pal
+    return samples, ctype, depth, plte
+
+
+def _to8(samples: np.ndarray, ctype: int, depth: int) -> np.ndarray:
+    """8-bit samples as cv2 makes them: the high byte of 16-bit ones, gray
+    below 8 bits scaled to 0-255."""
+    if depth == 16:
+        return (samples >> 8).astype(np.uint8)
+    if ctype == 0 and depth < 8:
+        return samples * np.uint8(255 // (2 ** depth - 1))
+    return samples
+
+
+def read(path: str) -> np.ndarray:
+    """Decode a PNG to uint8 (h, w) for gray, (h, w, 2) gray+alpha, (h, w,
+    3) RGB (palette images too) or (h, w, 4) RGBA."""
+    samples, ctype, depth, plte = _decode(path)
+    if ctype == 3:
+        return plte[samples[..., 0]]
+    samples = _to8(samples, ctype, depth)
+    return samples[..., 0] if samples.shape[2] == 1 else samples
+
+
+# libpng's rgb_to_gray weights as OpenCV sets them (0.299, 0.587 -> 15-bit
+# fixed point, truncated)
+_GRAY_WEIGHTS = (9797, 19234, 3737)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """Decode a PNG to (h, w) uint8 as ``cv2.imread(path,
+    cv2.IMREAD_GRAYSCALE)`` does: gray as stored (alpha dropped), colour
+    through libpng's (9797 R + 19234 G + 3737 B) >> 15, which rounds
+    (+ 2^14) only for 16-bit samples, then keeps their high byte."""
+    samples, ctype, depth, plte = _decode(path)
+    if ctype in (0, 4):
+        return np.ascontiguousarray(_to8(samples, ctype, depth)[..., 0])
+    rgb = (plte[samples[..., 0]] if ctype == 3 else samples[..., :3]).astype(np.int64)
+    r, g, b = _GRAY_WEIGHTS
+    mix = rgb[..., 0] * r + rgb[..., 1] * g + rgb[..., 2] * b
+    if depth == 16:
+        return (((mix + 16384) >> 15) >> 8).astype(np.uint8)
+    return (mix >> 15).astype(np.uint8)
+
+
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """(h, w, c) samples of unfiltered rows of packed bytes: 16-bit ones
+    big-endian as uint16, those below 8 bits unpacked most significant
+    first, unscaled."""
+    h = len(rows)
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    if depth == 16:
+        pairs = rows[:, :2 * w * c].reshape(h, w, c, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    per = 8 // depth
+    shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8(2 ** depth - 1)
+    return vals.reshape(h, -1)[:, :w * c].reshape(h, w, c)
 
 
 def _unfilter(filters: np.ndarray, data: np.ndarray) -> np.ndarray:

@@ -95,10 +95,22 @@ def seed_depth_normal(
         trusted = np.concatenate([trusted, np.zeros(4, bool)])
 
     if interpolate and len(Xc) >= 4:
-        # full-frame init rasterizes the lifted triangulation, which needs the
-        # native rasterizer the JAX package carries; not ported yet
-        raise NotImplementedError(
-            "init_sparse=False (interpolated seeding) is not ported yet")
+        # full-frame init: rasterize the lifted triangulation (screen-space
+        # z interpolation — a seed, refined by the first sweeps); a failure
+        # leaves the sparse splats alone, as in the JAX package
+        try:
+            from openmvs_tpu_torch import native
+
+            tri = Delaunay(proj)
+            pr = np.concatenate([proj, depth[:, None]], axis=1)
+            fid, zmap, _ = native.rasterize(pr, tri.simplices.astype(np.int32),
+                                            height, width, want_bary=False)
+            hit = fid >= 0
+            depth_map[hit] = zmap[hit]
+            f0 = tri.simplices[np.where(hit, fid, 0)][..., 0]
+            normal_map[hit] = normals[f0][hit]
+        except Exception:
+            pass
 
     # splat trusted points into the 2x2 pixel footprint
     sel = trusted

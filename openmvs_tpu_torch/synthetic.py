@@ -14,6 +14,8 @@ from.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Tuple
 
 import numpy as np
@@ -124,9 +126,13 @@ def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
 
     K = camera_intrinsics(W, H)
     grays, colors, gts, Cs = [], [], [], []
+    # the views' ray marches are independent numpy work: run them on threads
+    with ThreadPoolExecutor(max_workers=max(1, min(n_views, os.cpu_count() or 1))) as ex:
+        marched = list(ex.map(lambda i: ray_march(K, camera_center(i), W, H),
+                              range(n_views)))
     for i in range(n_views):
         C = camera_center(i)
-        depth, xy = ray_march(K, C, W, H)
+        depth, xy = marched[i]
         gray = np.where(depth > 0, texture(xy[..., 0], xy[..., 1]), 0.0)
         grays.append(gaussian_filter(gray.astype(np.float32), 0.5,
                                      mode="mirror"))
@@ -163,3 +169,31 @@ def depth_quality(depth: np.ndarray, gt: np.ndarray, rel: float = 0.01
     acc = float(good.sum() / max(int(valid.sum()), 1))
     comp = float((valid & has_gt).sum() / max(int(has_gt.sum()), 1))
     return acc, comp
+
+
+def write_scene_files(folder: str, n_views: int = 5, W: int = 1280, H: int = 960,
+                      seed: int = 0) -> Tuple[str, dict, List[np.ndarray], dict]:
+    """The colored scene of ``build_gt_scene`` as files, the way a user
+    hands a scene to the CLI: one JPEG (quality 95, through
+    ``io/images.write_image``) per view, ``view0000.jpg``..., and
+    ``scene.mvs`` (``Scene.save``: cameras, absolute image paths and the
+    sparse cloud). Returns (path of scene.mvs, {file name: sha256 of its
+    bytes}, ground-truth depths, the arrays)."""
+    import hashlib
+
+    from openmvs_tpu_torch.io import images as imio
+
+    os.makedirs(folder, exist_ok=True)
+    scene, gts, arrays = build_gt_scene(n_views=n_views, W=W, H=H, seed=seed,
+                                        color=True)
+    digests = {}
+    for i, img in enumerate(scene.images):
+        path = os.path.join(folder, f"view{i:04d}.jpg")
+        imio.write_image(path, arrays["colors"][i])
+        with open(path, "rb") as f:
+            digests[os.path.basename(path)] = hashlib.sha256(f.read()).hexdigest()
+        img.path = path
+        img.release()
+    mvs = os.path.join(folder, "scene.mvs")
+    scene.save(mvs)
+    return mvs, digests, gts, arrays

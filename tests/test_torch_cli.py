@@ -1,0 +1,123 @@
+"""The port's CLI (``python -m openmvs_tpu_torch``) on a scene from files,
+against the JAX package's CLI on the same files, on the CPU.
+
+The synthetic colored scene (3 views of 120x160) is written as the user
+hands a scene over: JPEG images (PIL) and ``scene.mvs``
+(``synthetic.write_scene_files``). ``densify`` runs through both CLIs with
+the slice tests' reduced schedule (one sub-resolution level, 4 iterations,
+one geometric pass); the port runs with ``--device cpu``. The final depth
+maps agree on more than 98.5% of the pixels valid in both, pooled, and
+their masks on more than 99% (the floor of tests/test_torch_densify.py,
+from the JAX package's own agreement under a one-ulp change,
+tests/_torch_parity_floor.py). Then ``mesh``, ``refine`` and ``texture``
+run through the port's CLI on the CPU, and every file they write reads
+back. Without a card the default ``--device cuda`` raises; subcommands and
+options whose modules are not ported raise NotImplementedError.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+pytest.importorskip("PIL")
+
+from _torch_helpers import SLICE_VIEWS, depth_agreement  # noqa: E402
+
+from openmvs_tpu.__main__ import main as jax_main  # noqa: E402
+from openmvs_tpu_torch.__main__ import main  # noqa: E402
+from openmvs_tpu_torch.io import dmap  # noqa: E402
+from openmvs_tpu_torch.synthetic import write_scene_files  # noqa: E402
+
+torch.set_num_threads(1)
+
+SLICE_ARGS = ["--sub-resolution-levels", "1", "--estimation-iters", "4",
+              "--estimation-geometric-iters", "1"]
+
+
+@pytest.fixture(scope="module")
+def dense(tmp_path_factory):
+    """The scene files, and densify's outputs from both CLIs."""
+    folder = tmp_path_factory.mktemp("cli")
+    mvs, _, _, _ = write_scene_files(str(folder), SLICE_VIEWS, 160, 120)
+    main(["densify", mvs, "-o", str(folder / "port_dense.mvs"), "--device", "cpu",
+          "--dmaps-folder", str(folder / "port_dmaps")] + SLICE_ARGS)
+    jax_main(["densify", mvs, "-o", str(folder / "jax_dense.mvs"),
+              "--dmaps-folder", str(folder / "jax_dmaps")] + SLICE_ARGS)
+    return folder, mvs
+
+
+def test_cli_densify_matches_jax(dense):
+    from openmvs_tpu.scene import Scene as JaxScene
+
+    from openmvs_tpu_torch.scene import Scene
+
+    folder, _ = dense
+    maps = [[dmap.load(str(folder / f"{who}_dmaps" / f"depth{i:04d}.dmap")).depth
+             for i in range(SLICE_VIEWS)] for who in ("port", "jax")]
+    masks, pooled, per_view = depth_agreement(*maps)
+    port = Scene.load(str(folder / "port_dense.mvs"))
+    jax = JaxScene.load(str(folder / "jax_dense.mvs"))
+    msg = (f"points {len(port.pointcloud)} vs {len(jax.pointcloud)}, mask agreement "
+           f"{masks}, depth agreement {pooled} (per view {per_view})")
+    assert min(masks) > 0.99, msg
+    assert pooled > 0.985, msg
+    assert abs(len(port.pointcloud) - len(jax.pointcloud)) <= 0.02 * len(jax.pointcloud), msg
+    assert len(port.pointcloud) > 5000 and np.isfinite(port.pointcloud.points).all()
+    # the saved scene keeps the cameras and image paths it was loaded with
+    assert [im.path for im in port.images] == [im.path for im in jax.images]
+    assert all(np.array_equal(a.camera.K, b.camera.K) for a, b in zip(port.images, jax.images))
+    assert os.path.getsize(folder / "port_dense.ply") > 0
+
+
+def test_cli_mesh_refine_texture_files_read_back(dense):
+    from openmvs_tpu_torch.io import obj, ply, png
+
+    folder, _ = dense
+    scene = str(folder / "port_dense.mvs")
+    main(["mesh", scene, "--decimate", "0.5", "-o", str(folder / "mesh.ply")])
+    main(["refine", scene, "-m", str(folder / "mesh.ply"), "--scales", "1", "--iters", "4",
+          "--device", "cpu", "-o", str(folder / "refined.ply")])
+    main(["texture", scene, "-m", str(folder / "refined.ply"), "--device", "cpu",
+          "-o", str(folder / "textured.obj")])
+    mesh = ply.load(str(folder / "mesh.ply"))
+    refined = ply.load(str(folder / "refined.ply"))
+    assert len(mesh.faces) > 1000 and np.isfinite(mesh.vertices).all()
+    assert len(refined.faces) > 1000 and np.isfinite(refined.vertices).all()
+    assert not np.array_equal(refined.vertices[:len(mesh.vertices)], mesh.vertices)
+    v, f, tc, tex = obj.load_mesh_obj(str(folder / "textured.obj"))
+    assert len(f) == len(refined.faces) and tc.shape == (len(f), 3, 2)
+    assert tex.ndim == 3 and tex.shape[2] == 3
+    assert np.array_equal(png.to_rgb(png.read(str(folder / "textured.png"))), tex)
+
+
+def test_cli_default_device_raises_without_a_card(dense):
+    folder, mvs = dense
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    for args in (["densify", mvs], ["refine", mvs, "-m", "x.ply"],
+                 ["texture", mvs, "-m", "x.ply"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(args)
+
+
+@pytest.mark.parametrize("args", [["view", "a.mvs"], ["transform", "a.mvs", "-o", "b.mvs"],
+                                  ["eval", "--dataset", "dtu"], ["import-nvm", "a.nvm"],
+                                  ["import-bundler", "b.out"], ["import-metashape", "c.xml"],
+                                  ["import-polycam", "d"], ["import-mvsnet", "e"],
+                                  ["densify", "a.mvs", "--split-max-points", "10",
+                                   "--device", "cpu"]])
+def test_cli_unported_parts_raise(args):
+    with pytest.raises(NotImplementedError, match="item"):
+        main(args)
+
+
+def test_cli_dump_prints_the_jax_summary(dense, capsys):
+    folder, mvs = dense
+    files = [mvs, str(folder / "port_dmaps" / "depth0000.dmap")]
+    main(["dump"] + files)
+    port = capsys.readouterr().out
+    jax_main(["dump"] + files)
+    assert port == capsys.readouterr().out and "3 images" in port

@@ -117,10 +117,21 @@ def test_export_mesh_to_depth_maps_equals_jax(tmp_path, ext):
 
 
 def test_export_mesh_to_depth_maps_other_image_format_raises(tmp_path):
-    scene, _ = _mesh_scenes(10)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pdens.export_mesh_to_depth_maps(scene, str(tmp_path / "d.jpg"))
-    assert not list(tmp_path.iterdir())
+    """8-bit visualizations in formats other than PNG, once refused, are
+    written through io/images.write_image: a .bmp decodes to the pixels of
+    the JAX package's cv2.imwrite, a .jpg (an encoder of its own, quality
+    95 as OpenCV's default) to within 3 of them."""
+    import cv2
+
+    scene, jscene = _mesh_scenes(10)
+    for ext, tol in ((".bmp", 0), (".jpg", 3)):
+        n = pdens.export_mesh_to_depth_maps(scene, str(tmp_path / f"p{ext}"))
+        jd.export_mesh_to_depth_maps(jscene, str(tmp_path / f"j{ext}"))
+        assert n == SLICE_VIEWS
+        for i in range(n):
+            a = cv2.imread(str(tmp_path / f"p{i:04d}{ext}"), cv2.IMREAD_UNCHANGED)
+            b = cv2.imread(str(tmp_path / f"j{i:04d}{ext}"), cv2.IMREAD_UNCHANGED)
+            assert a.shape == b.shape and np.abs(a.astype(int) - b).max() <= tol, ext
 
 
 class _Stop(Exception):

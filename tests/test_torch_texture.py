@@ -309,8 +309,8 @@ def test_texture_needs_color_pixels(plane):
         texture_mesh(scene_from_arrays(**dict(arrays, colors=None)), mesh,
                      device="cpu")
     scene = scene_from_arrays(**arrays)
-    scene.images[0].gray = None      # image loading is not ported
-    with pytest.raises(NotImplementedError):
+    scene.images[0].gray = None      # no file behind the image to load
+    with pytest.raises(FileNotFoundError):
         texture_mesh(scene, mesh, device="cpu")
 
 
