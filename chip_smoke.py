@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
 texturing and SGM densify paths, the whole chain densify -> mesh -> clean
--> refine -> texture -> save, and the same chain from files through the
-port's CLI, on one NVIDIA GPU.
+-> refine -> texture -> save, the same chain from files through the
+port's CLI, and a distorted SfM model imported, undistorted, densified,
+evaluated, transformed and split, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -133,8 +134,35 @@ Phases, each printing one JSON line:
                   phase texture holds it (_file_color_fidelity: the labels
                   do not survive the files); scene_dense.mvs read back
                   equals the cloud densify held
-Each of phases 4, 5, 7, 9, 12 and 14 sets the launch counts to 0 just before
-the path it drives and reads them just after. Then the {"kernels": [...]} line
+ 15. imports    - real SfM input from files: the colored scene seen
+                  through a distorted OPENCV camera (synthetic.DISTORTION)
+                  and written as an ETH3D scene (5 JPEGs of 1280x960 at
+                  quality 95, a COLMAP text calibration in
+                  dslr_calibration_jpg/, scan_clean/scan.ply;
+                  synthetic.write_eth3d_files), then import-colmap as a
+                  command (the images undistorted by the port's numpy
+                  rebuild of cv2.undistort; their sha256 printed),
+                  densify through __main__.main (launches as phase
+                  files'), eval --dataset eth3d --run --device cuda, and
+                  on the host eval --est of the dense cloud, transform
+                  --matrix then --align-file back, --max-resolution 640,
+                  --compute-volume of the height field's mesh, and densify
+                  --split-max-points 100000; as a control the same files
+                  imported as PINHOLE with the coefficients dropped and
+                  densified. Seconds of each step, peak memory, and the
+                  control's height error beside the undistorted one and
+                  phase files'. Holds, from the JAX package on the same
+                  files (tests/_torch_import_quality.py): distorted and
+                  undistorted JPEG bytes equal, points within 5%, the
+                  cloud's height error at most 1.05x and its share within
+                  HEIGHT_TOL at least 0.98x, F-scores of both evals within
+                  0.01, the align round trip within 1e-6, rescaled JPEG
+                  bytes equal, the volume within 1e-6 relative, chunk
+                  counts and views equal with points within 5% (the
+                  clouds differ by argmin flips), and the undistorted
+                  cloud nearer the truth than the control's
+Each of phases 4, 5, 7, 9, 12, 14 and 15 sets the launch counts to 0 just
+before the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -227,6 +255,77 @@ JAX_CLI = {"points": 288104, "cloud_height_error": 0.008126990339840809,
            "refined_height_error": 0.008393922736098272,
            "refined_within": 0.6703529174735005, "color_fidelity": 1.0,
            "faces_within": 0.9934165962234999}
+
+# The JAX package's figures for phase imports: synthetic.write_eth3d_files
+# (the colored scene through an OPENCV camera with synthetic.DISTORTION, 5
+# JPEGs of 1280x960 at quality 95, the COLMAP text calibration and
+# scan_clean/scan.ply), then python -m openmvs_tpu import-colmap (cv2
+# undistorts), densify scene.mvs, eval --dataset eth3d --run, and
+# _host_steps (eval --est, transform, --split-max-points), on the CPU (8
+# cores), measured with
+#   JAX_PLATFORMS=cpu python tests/_torch_import_quality.py
+# (densify 475.6 s, eval --run 459.8 s): the sha256 of the distorted and
+# the undistorted JPEGs, the dense points, _mesh_height_quality of the
+# cloud, the F-scores of both evals, the align round trip's error, the
+# sha256 of the rescaled images, the leveled volume and the chunks
+JAX_IMPORTS = {
+    "jpeg_sha256": {
+        "view0000.jpg": "ca40b28feed1eefa0d9a6d53aee1ef79c09c8805c17c83a9cb43b4d90ac7796a",
+        "view0001.jpg": "05efbc7abaaf7aa6cfeea4f7e57e13d7a4f0f90a6cf7acf8991558d04befae6d",
+        "view0002.jpg": "195413b936af8b066960e48974c5f4d5180e1ef8e5a4ab36019abf3f43ab1bc3",
+        "view0003.jpg": "5239babf6af4e45b3a3c6811694c06c7cb6272bcba874af6a69c643a47c1dbf4",
+        "view0004.jpg": "19dc44aec33138dbf67918c43164660610e7f303190f1705a379f601fc221173"
+    },
+    "undistorted_sha256": {
+        "view0000.jpg": "aad4a3942c3bba97c7c5dfe53b79ee42db2900caad78fcf14cd639a888088d5c",
+        "view0001.jpg": "a1000a7f9b7e16efa1171abc6ed74aaed012579b884b7dd11180550eb976caee",
+        "view0002.jpg": "e0f3af51f77ff69517dc00ce9ad72bcacfd46a8262bd2764ef3b391de37a9543",
+        "view0003.jpg": "3a4a58feffa60cfebea32b5727f85c57d9f71c86e59cb21816acd9b850fae762",
+        "view0004.jpg": "aaefffd66fce5b2fc2bc8ce69c9ab85f7e65affeb1bce74dec59716d72c33ad9"
+    },
+    "points": 288490,
+    "cloud_height_error": 0.008137063537242814,
+    "cloud_within": 0.684735484868287,
+    "run_fscores": {
+        "1cm": 0.7072274889425041,
+        "2cm": 0.9416503345978743,
+        "5cm": 0.9756327639413935,
+        "10cm": 0.9841405238004024
+    },
+    "est_fscores": {
+        "1cm": 0.7072274889425041,
+        "2cm": 0.9416503345978743,
+        "5cm": 0.9756327639413935,
+        "10cm": 0.9841405238004024
+    },
+    "align_matrix_error": 1.3322676295501878e-15,
+    "scaled": {
+        "view0000.jpg": "ea25e747f67cc6ff3d178e2d9661b2f89a44d1a937a3de9cd6e2dde003ec70e5",
+        "view0001.jpg": "b18ec468088a94edfe2580901ed207f353a29acf2cbc65b00776b62a42ef4cf5",
+        "view0002.jpg": "053bb17c4b68d27de75d1b70615e086efbbc984e15f555fe56db8e62a0fa4a46",
+        "view0003.jpg": "a563c1919a4eca245466f3a4192c3b6865a25d80262b53e41b694cbbe0174b78",
+        "view0004.jpg": "d2e56df171e8ff734a6fa03821dbeffd1e3ca339010b39b338d78b1161e651f6"
+    },
+    "volume": 0.0010366428905346226,
+    "chunks": [
+        {
+            "points": 80377,
+            "views": 5
+        },
+        {
+            "points": 80060,
+            "views": 5
+        },
+        {
+            "points": 79730,
+            "views": 5
+        },
+        {
+            "points": 80596,
+            "views": 5
+        }
+    ]
+}
 
 # Per-view (accuracy, completeness) of the JAX package's SGM estimator on
 # phase densify's scene (480x640, 5 views, DenseOptions(estimator="sgm")),
@@ -2156,6 +2255,118 @@ def _time_loading(scene, out_mvs):
     return t
 
 
+def _move_matrix():
+    """The 3x4 similarity phase imports moves the dense scene by before
+    aligning it back: a rotation of 0.3 rad about (1, 2, 2) / 3 (Rodrigues),
+    scale 1.3 and a shift."""
+    import numpy as np
+
+    k = np.array([1.0, 2.0, 2.0]) / 3.0
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(0.3) * Kx + (1 - np.cos(0.3)) * Kx @ Kx
+    return np.concatenate([1.3 * R, [[0.7], [-1.1], [0.25]]], axis=1)
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _quiet(main, args):
+    """``main(args)`` with its standard output kept out of this script's:
+    (seconds, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(args)
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def _fscores(path):
+    """The F-scores at 1, 2, 5 and 10 cm of an ``eval -o`` JSON file."""
+    with open(path) as f:
+        res = json.load(f)
+    return {k: res[f"fscore@{k}"] for k in ("1cm", "2cm", "5cm", "10cm")}, res
+
+
+def _host_steps(main, scene_dir, dense_mvs, work, densify_args=()):
+    """The host steps of phase imports on a dense scene, through the CLI
+    entry ``main`` (the port's or the JAX package's, in this process):
+    ``eval --est`` of the dense cloud against the scene's scan;
+    ``transform --matrix`` by _move_matrix(), then ``transform --align-file``
+    back (the error of the recovered similarity: max |T_back M - I| with
+    T_back from the camera centres before and after, and the largest move
+    of a camera centre); ``transform --max-resolution 640`` (the sha256 of
+    each rescaled image); ``transform --compute-volume`` with the height
+    field's 96-grid as the mesh (its printed volume, and the same by
+    ``Scene.compute_leveled_volume`` in full precision); ``densify
+    --split-max-points 100000`` (each chunk's points and views). Returns
+    (results, seconds)."""
+    import numpy as np
+
+    from openmvs_tpu_torch.geometry.similarity import umeyama
+    from openmvs_tpu_torch.io import mvs as mvsio
+    from openmvs_tpu_torch.io.images import image_size
+    from openmvs_tpu_torch.io import ply as plyio
+    from openmvs_tpu_torch.scene import Scene
+    from openmvs_tpu_torch.synthetic import height_field_mesh
+
+    def path(name):
+        return os.path.join(work, name)
+
+    def centres(mvs):
+        itf = mvsio.load(mvs)
+        return np.stack([itf.platforms[m.platform_id].poses[m.pose_id].C
+                         for m in itf.images]).astype(np.float64)
+
+    secs, res = {}, {}
+    secs["eval_est"], _ = _quiet(main, ["eval", "--dataset", "eth3d", "--scene", scene_dir,
+                                        "--est", dense_mvs.replace(".mvs", ".ply"),
+                                        "-o", path("eval_est.json")])
+    res["est_fscores"], _ = _fscores(path("eval_est.json"))
+    M = np.eye(4)
+    M[:3] = _move_matrix()
+    np.savetxt(path("move.txt"), M[:3])
+    secs["transform_matrix"], _ = _quiet(main, ["transform", dense_mvs, "--matrix",
+                                                path("move.txt"), "-o", path("moved.mvs")])
+    secs["transform_align"], _ = _quiet(main, ["transform", path("moved.mvs"), "--align-file",
+                                               dense_mvs, "-o", path("back.mvs")])
+    c0, c1, c2 = centres(dense_mvs), centres(path("moved.mvs")), centres(path("back.mvs"))
+    T_back, _ = umeyama(c1, c2)
+    res["align_matrix_error"] = float(np.abs(T_back @ M - np.eye(4)).max())
+    res["align_centre_error"] = float(np.abs(c2 - c0).max())
+    secs["transform_scale"], _ = _quiet(main, ["transform", dense_mvs, "--max-resolution",
+                                               "640", "-o", path("scaled.mvs")])
+    scaled = Scene.load(path("scaled.mvs"))
+    res["scaled"] = {os.path.basename(im.path): _sha256(im.path) for im in scaled.images}
+    res["scaled_sizes"] = sorted({image_size(im.path) for im in scaled.images})
+    mesh = height_field_mesh(96)
+    plyio.save_mesh(path("height_field.ply"), mesh.vertices, mesh.faces)
+    secs["transform_volume"], out = _quiet(main, ["transform", dense_mvs, "--mesh-file",
+                                                  path("height_field.ply"), "--compute-volume",
+                                                  "-o", path("leveled.mvs")])
+    res["volume_printed"] = float(re.search(r"mesh volume: (\S+)", out).group(1))
+    scene = Scene.load(dense_mvs)
+    scene.mesh = mesh
+    res["volume"] = scene.compute_leveled_volume()
+    split_dir = os.path.join(work, "split")
+    os.makedirs(split_dir, exist_ok=True)
+    secs["split"], out = _quiet(main, ["densify", dense_mvs, "--split-max-points", "100000",
+                                       "-o", os.path.join(split_dir, "chunk.mvs")]
+                                + list(densify_args))
+    chunks = []
+    for name in sorted(os.listdir(split_dir)):
+        itf = mvsio.load(os.path.join(split_dir, name))
+        chunks.append({"name": name, "points": len(itf.points), "views": len(itf.images)})
+    res["chunks"] = chunks
+    return res, secs
+
+
 def phase_files(card):
     """The port run as a user runs it, from files: the colored synthetic
     scene written as 5 JPEGs of 1280x960 (quality 95, PIL) and scene.mvs,
@@ -2300,6 +2511,161 @@ def phase_files(card):
                            f"below 0.98x the JAX CLI's {JAX_CLI['faces_within']}")
     if not np.isfinite(np.asarray(refined.vertices)).all():
         raise RuntimeError("refine produced non-finite vertices")
+    return q_cloud[0]
+
+
+def phase_imports(card, files_error):
+    """Real SfM input from files: the colored synthetic scene seen through
+    a distorted OPENCV camera (synthetic.DISTORTION), written as an ETH3D
+    training scene (5 JPEGs of 1280x960 at quality 95, a COLMAP text
+    calibration, scan_clean/scan.ply); ``import-colmap`` as a command
+    (undistorting the images), ``densify`` through
+    ``openmvs_tpu_torch.__main__.main`` (launch counts set to 0 just before
+    and read just after), ``eval --run --device cuda``, then
+    ``_host_steps`` (``eval --est``, ``transform``, ``--split-max-points``)
+    and, as a control, the same files imported as PINHOLE with the
+    coefficients dropped and densified. Held to the JAX package's figures
+    on the same files (JAX_IMPORTS)."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import __main__ as cli
+    from openmvs_tpu_torch.interfaces.undistort import undistort_image
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.io import ply as plyio
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.synthetic import DISTORTION, camera_intrinsics, write_eth3d_files
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir, work = os.path.join(tmp, "eth3d"), os.path.join(tmp, "work")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        digests, _ = write_eth3d_files(scene_dir, 5, 1280, 960)
+        build_s = time.perf_counter() - t0
+        for name, digest in sorted(digests.items()):
+            print(f"sha256 {name} {digest}", flush=True)
+        calib = os.path.join(scene_dir, "dslr_calibration_jpg")
+        mvs = os.path.join(work, "scene.mvs")
+        import_s, _, _ = _cli(["import-colmap", calib, "-i", scene_dir, "-o", mvs])
+        und_dir = os.path.join(calib, "undistorted")
+        undistorted = {n: _sha256(os.path.join(und_dir, n)) for n in sorted(os.listdir(und_dir))}
+        # the layer's own seconds for one image: decode, map and remap, encode
+        src = os.path.join(scene_dir, "images", "dslr_images", "view0000.jpg")
+        t0 = time.perf_counter()
+        img = imio.imread(src)
+        t1 = time.perf_counter()
+        und = undistort_image(img, camera_intrinsics(1280, 960), DISTORTION)
+        t2 = time.perf_counter()
+        imio.imwrite(os.path.join(work, "view0000.jpg"), und)
+        undistort_one = {"imread": t1 - t0, "undistort_image": t2 - t1,
+                         "imwrite": time.perf_counter() - t2}
+        for name, digest in undistorted.items():
+            print(f"sha256 undistorted/{name} {digest}", flush=True)
+
+        score = patchmatch.score_hypotheses
+        calls = [0]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return score(*a, **kw)
+
+        patchmatch.score_hypotheses = counted
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pm_kernel.reset_launches()
+            densify_s, _ = _quiet(cli.main, ["densify", mvs])
+            torch.cuda.synchronize()
+            launches = dict(pm_kernel.LAUNCHES)
+        finally:
+            patchmatch.score_hypotheses = score
+        densify_peak = torch.cuda.max_memory_allocated()
+        dense_mvs = os.path.join(work, "scene_dense.mvs")
+        cloud = plyio.load(dense_mvs.replace(".mvs", ".ply")).vertices
+        q_cloud = _mesh_height_quality(cloud)
+
+        torch.cuda.reset_peak_memory_stats()
+        pm_kernel.reset_launches()
+        eval_s, _ = _quiet(cli.main, ["eval", "--dataset", "eth3d", "--scene", scene_dir, "--run",
+                                      "--device", "cuda", "-o", os.path.join(work, "run.json")])
+        torch.cuda.synchronize()
+        eval_launches = dict(pm_kernel.LAUNCHES)
+        eval_peak = torch.cuda.max_memory_allocated()
+        run_f, run_res = _fscores(os.path.join(work, "run.json"))
+        host, host_s = _host_steps(cli.main, scene_dir, dense_mvs, work)
+
+        ctrl = os.path.join(work, "pinhole.mvs")
+        t0 = time.perf_counter()
+        _quiet(cli.main, ["import-colmap", os.path.join(scene_dir, "pinhole_calibration"),
+                          "-i", scene_dir, "-o", ctrl])
+        _quiet(cli.main, ["densify", ctrl])
+        control_s = time.perf_counter() - t0
+        ctrl_cloud = plyio.load(ctrl.replace(".mvs", "_dense.ply")).vertices
+        q_ctrl = _mesh_height_quality(ctrl_cloud)
+    got = {"points": len(cloud), "cloud_height_error": q_cloud[0], "cloud_within": q_cloud[1],
+           "run_fscores": run_f, **host}
+    rec = {"phase": "imports", "views": 5, "image_W": 1280, "image_H": 960,
+           "distortion": list(DISTORTION), "jpeg_sha256": digests,
+           "undistorted_sha256": undistorted, "seconds": {
+               "scene_build": build_s, "import_undistort": import_s, "densify": densify_s,
+               "eval_run": eval_s, **host_s, "control": control_s,
+               "transform": sum(v for k, v in host_s.items() if k.startswith("transform")),
+               "one_image": undistort_one},
+           "densify_launches": launches, "score_hypotheses_calls": calls[0],
+           "eval_run_launches": eval_launches, "eval_run_points": run_res["n_est_points"],
+           "gt_points": run_res["n_gt_points"],
+           "max_memory_allocated_bytes": {"densify": densify_peak, "eval_run": eval_peak},
+           "control_height_error": {"undistorted": q_cloud[0], "pinhole_ignoring_distortion":
+                                    q_ctrl[0], "phase_files_pinhole": files_error},
+           "control_within": {"undistorted": q_cloud[1], "pinhole_ignoring_distortion": q_ctrl[1]},
+           "control_points": {"undistorted": len(cloud), "pinhole_ignoring_distortion":
+                              len(ctrl_cloud)},
+           "results": got, "jax": JAX_IMPORTS, "phase_s": time.perf_counter() - t_phase,
+           "card": card}
+    emit(rec)
+    if digests != JAX_IMPORTS["jpeg_sha256"]:
+        raise RuntimeError("the distorted JPEGs differ from the JAX run's: "
+                           f"{digests} against {JAX_IMPORTS['jpeg_sha256']}")
+    if undistorted != JAX_IMPORTS["undistorted_sha256"]:
+        raise RuntimeError("the undistorted images differ from the JAX run's (cv2.undistort "
+                           f"and cv2.imwrite): {undistorted}")
+    for name, got_l in (("densify", launches), ("eval --run", eval_launches)):
+        if any(got_l[k] == 0 for k in MAIN_PATH):
+            raise RuntimeError(f"a scorer kernel was not launched by {name}: {got_l}")
+    _check_scoring(launches, calls[0])
+    if abs(got["points"] - JAX_IMPORTS["points"]) > 0.05 * JAX_IMPORTS["points"]:
+        raise RuntimeError(f"{got['points']} dense points: not within 5% of the JAX "
+                           f"run's {JAX_IMPORTS['points']}")
+    if not got["cloud_height_error"] <= 1.05 * JAX_IMPORTS["cloud_height_error"]:
+        raise RuntimeError(f"cloud height error {got['cloud_height_error']} above 1.05x "
+                           f"the JAX run's {JAX_IMPORTS['cloud_height_error']}")
+    if not got["cloud_within"] >= 0.98 * JAX_IMPORTS["cloud_within"]:
+        raise RuntimeError(f"cloud share within {HEIGHT_TOL} {got['cloud_within']} below "
+                           f"0.98x the JAX run's {JAX_IMPORTS['cloud_within']}")
+    for key in ("run_fscores", "est_fscores"):
+        for tol, f in got[key].items():
+            if not abs(f - JAX_IMPORTS[key][tol]) <= 0.01:
+                raise RuntimeError(f"{key} at {tol}: {f} not within 0.01 of the JAX run's "
+                                   f"{JAX_IMPORTS[key][tol]}")
+    if not (got["align_matrix_error"] <= 1e-6 and got["align_centre_error"] <= 1e-6):
+        raise RuntimeError(f"the align round trip missed: matrix {got['align_matrix_error']}, "
+                           f"centres {got['align_centre_error']}")
+    if got["scaled"] != JAX_IMPORTS["scaled"] or got["scaled_sizes"] != [(640, 480)]:
+        raise RuntimeError(f"the rescaled images differ from the JAX run's: {got['scaled']} "
+                           f"{got['scaled_sizes']}")
+    if not abs(got["volume"] - JAX_IMPORTS["volume"]) <= 1e-6 * abs(JAX_IMPORTS["volume"]):
+        raise RuntimeError(f"volume {got['volume']} not within 1e-6 of the JAX run's "
+                           f"{JAX_IMPORTS['volume']}")
+    jc = JAX_IMPORTS["chunks"]
+    if (len(got["chunks"]) != len(jc)
+            or any(a["views"] != b["views"] for a, b in zip(got["chunks"], jc))
+            or any(abs(a["points"] - b["points"]) > 0.05 * b["points"]
+                   for a, b in zip(got["chunks"], jc))):
+        raise RuntimeError(f"chunks {got['chunks']} against the JAX run's {jc}")
+    if not q_cloud[0] < q_ctrl[0]:
+        raise RuntimeError(f"undistortion did not lower the cloud's height error: {q_cloud[0]} "
+                           f"against {q_ctrl[0]} imported as PINHOLE")
 
 
 def main():
@@ -2334,7 +2700,7 @@ def main():
     phase_texture(card, colored)
     phase_sgm(card, scene, gts)
     phase_pipeline(card, scene, colored, dense)
-    phase_files(card)
+    phase_imports(card, phase_files(card))
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

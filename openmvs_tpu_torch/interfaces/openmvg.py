@@ -1,8 +1,7 @@
 """OpenMVG sfm_data import (apps/InterfaceOpenMVG equivalent).
 
-A copy of ``openmvs_tpu/interfaces/openmvg.py``, except that a distorted
-intrinsic raises (``interfaces.require_undistorted``) where the JAX package
-undistorts its images with OpenCV. Reads OpenMVG's `sfm_data.json` (the
+A copy of ``openmvs_tpu/interfaces/openmvg.py``; a distorted intrinsic's
+images are undistorted on import (``interfaces/undistort.py``). Reads OpenMVG's `sfm_data.json` (the
 JSON serialization of SfM_Data: views, intrinsics, extrinsics/poses,
 structure) or its cereal `sfm_data.bin` into the .mvs Interface — the same
 mapping the reference performs by linking openMVG libs
@@ -18,14 +17,14 @@ from typing import Dict
 
 import numpy as np
 
-from openmvs_tpu_torch.interfaces import require_undistorted
 from openmvs_tpu_torch.io import mvs as mvsio
 from openmvs_tpu_torch.utils.log import get_logger
 
 log = get_logger("openmvg")
 
 
-def import_openmvg(sfm_data_path: str, images_folder: str = "") -> mvsio.Interface:
+def import_openmvg(sfm_data_path: str, images_folder: str = "",
+                   undistort_dir: str = "") -> mvsio.Interface:
     if sfm_data_path.endswith(".bin"):
         doc = _load_sfm_data_bin(sfm_data_path)
     else:
@@ -109,7 +108,11 @@ def import_openmvg(sfm_data_path: str, images_folder: str = "") -> mvsio.Interfa
     itf.points = np.asarray(pts, np.float32).reshape(-1, 3)
     itf.point_views = views_list
     itf.colors = np.asarray(colors, np.uint8).reshape(-1, 3)
-    require_undistorted(dists, sfm_data_path)
+    if dists:
+        from openmvs_tpu_torch.interfaces import undistort as und
+        base = os.path.dirname(os.path.abspath(sfm_data_path))
+        und.undistort_interface_images(
+            itf, dists, undistort_dir or os.path.join(base, "undistorted"))
     log.info("OpenMVG import: %d views, %d points", len(itf.images), len(itf.points))
     return itf
 

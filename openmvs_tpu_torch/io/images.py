@@ -9,7 +9,10 @@ imported only when such a file is read or written; ``load_gray_u8`` is
 ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (a mask). ``to_gray`` is
 ``cv2.cvtColor(RGB2GRAY)`` in OpenCV 5's 15-bit fixed point.
 ``image_size`` reads a file's width and height from its header.
-``write_image`` stands for ``cv2.imwrite`` of 8-bit images.
+``write_image`` stands for ``cv2.imwrite`` of 8-bit RGB images. ``imread``
+and ``imwrite`` are ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` and
+``cv2.imwrite`` in OpenCV's own channel order (BGR, BGRA) and dtypes
+(uint8, and uint16 in PNG), which image undistortion reads and writes.
 
 ``resize_area`` reproduces ``cv2.resize(..., interpolation=cv2.INTER_AREA)``
 for downscaling (the reference's area filter): uint8 images bit for bit
@@ -120,6 +123,59 @@ def write_image(path: str, img: np.ndarray) -> None:
     Image = _pil_image(path)
     kw = {"quality": 95} if ext in (".jpg", ".jpeg") else {}
     Image.fromarray(img).save(path, **kw)
+
+
+def imread(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: (h, w) for gray, (h, w,
+    3) BGR, (h, w, 4) BGRA where the file has alpha (``png.read_unchanged``
+    says which PNGs), uint16 samples of a 16-bit PNG kept. JPEG and other
+    formats decode through PIL (libjpeg-turbo, as OpenCV's); SCI through
+    ``load_sci`` as BGR."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".sci":
+        return np.ascontiguousarray(load_sci(path)[..., ::-1])
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"cannot read image: {path}")
+    if ext == ".png":
+        img = png.read_unchanged(path)
+    else:
+        Image = _pil_image(path)
+        with Image.open(path) as im:
+            if im.mode in ("L", "I;16", "RGB", "RGBA"):
+                img = np.asarray(im)
+            elif im.mode == "LA":
+                la = np.asarray(im)
+                img = np.concatenate([np.repeat(la[..., :1], 3, axis=2), la[..., 1:]], 2)
+            elif im.mode == "P" and "transparency" in im.info:
+                img = np.asarray(im.convert("RGBA"))
+            else:
+                img = np.asarray(im.convert("RGB"))
+    if img.ndim == 3:
+        img = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=2)
+    return np.ascontiguousarray(img)
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """``cv2.imwrite(path, img)`` of an (h, w) gray, (h, w, 3) BGR or (h, w,
+    4) BGRA image, by extension: PNG through ``io/png`` (uint8 or uint16;
+    OpenCV's zlib settings differ, its pixels do not), JPEG through PIL at
+    OpenCV's defaults (quality 95, 4:2:0, no alpha; the same bytes as
+    OpenCV's libjpeg-turbo), SCI through ``save_sci``, other formats
+    through PIL."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    ext = os.path.splitext(path)[1].lower()
+    if img.ndim == 3:
+        keep = 3 if ext in (".jpg", ".jpeg", ".sci") else img.shape[2]
+        img = np.concatenate([img[..., 2::-1], img[..., 3:keep]], axis=2)
+    if ext == ".png":
+        png.write(path, img)
+        return
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: only PNG stores {img.dtype} here; 8-bit images "
+                         "expected")
+    write_image(path, np.ascontiguousarray(img))
 
 
 # SCI: the reference's internal raw image format (libs/IO/ImageSCI.cpp).

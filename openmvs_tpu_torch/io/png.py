@@ -3,12 +3,14 @@
 Stands in for PIL and OpenCV, which the JAX package uses for its atlas
 pages (``openmvs_tpu/io/obj.py``) and its images (``cv2.imread``,
 ``openmvs_tpu/io/images.py``): the port imports torch, numpy and scipy
-only. ``write`` stores 8-bit gray, RGB or RGBA, each row with the Up
-filter. ``read`` decodes every PNG that ``cv2.imread(path,
+only. ``write`` stores 8- or 16-bit gray, RGB or RGBA, each row with the
+Up filter. ``read`` decodes every PNG that ``cv2.imread(path,
 cv2.IMREAD_COLOR)`` reads, as it reads it: bit depths 1, 2, 4, 8 and 16
 (16-bit samples keep their high byte, gray below 8 bits is scaled to
 0-255), colour types 0, 2, 3 (palette; ``tRNS`` ignored), 4 and 6, with or
 without Adam7 interlacing, all five row filters (PNG spec, sections 7-9).
+``read_unchanged`` keeps what ``cv2.IMREAD_UNCHANGED`` keeps: 16-bit
+samples, alpha, and the ``tRNS`` transparency of palette and RGB images.
 """
 
 from __future__ import annotations
@@ -28,29 +30,32 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def encode(img: np.ndarray) -> bytes:
     """The PNG file of an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA
-    uint8 image."""
+    uint8 or uint16 image (16-bit samples stored big-endian)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"png.write: uint8 pixels expected, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"png.write: uint8 or uint16 pixels expected, got {img.dtype}")
+    depth = 8 * img.dtype.itemsize
     if img.ndim == 2:
         img = img[..., None]
     ctype = {1: 0, 3: 2, 4: 6}.get(img.shape[2] if img.ndim == 3 else 0)
     if ctype is None:
         raise ValueError(f"png.write: (h, w), (h, w, 3) or (h, w, 4) expected, got {img.shape}")
     h, w, c = img.shape
-    rows = img.reshape(h, w * c)
-    up = np.empty((h, 1 + w * c), np.uint8)
+    rows = img.astype(">u2").view(np.uint8) if depth == 16 else img
+    rows = rows.reshape(h, -1)
+    up = np.empty((h, 1 + rows.shape[1]), np.uint8)
     up[:, 0] = 2                                     # the Up filter
     up[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=up[1:, 1:])  # wraps modulo 256
     return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(up.tobytes(), 6))
             + _chunk(b"IEND", b""))
 
 
 def write(path: str, img: np.ndarray) -> None:
-    """Save an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA uint8 image."""
+    """Save an (h, w) gray, (h, w, 3) RGB or (h, w, 4) RGBA uint8 or uint16
+    image."""
     data = encode(img)
     with open(path, "wb") as f:
         f.write(data)
@@ -65,14 +70,14 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 
 
 def _decode(path: str):
-    """(samples (h, w, c), color type, bit depth, palette or None): uint16
-    samples at depth 16, else uint8 samples as stored (palette indices, gray
-    below 8 bits unscaled)."""
+    """(samples (h, w, c), color type, bit depth, palette or None, tRNS
+    bytes or None): uint16 samples at depth 16, else uint8 samples as stored
+    (palette indices, gray below 8 bits unscaled)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr, plte = 8, [], None, None
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
     while pos + 8 <= len(blob):
         n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
         data = blob[pos + 8:pos + 8 + n]
@@ -81,6 +86,8 @@ def _decode(path: str):
             hdr = struct.unpack(">IIBBBBB", data)
         elif kind == b"PLTE":
             plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = data
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
@@ -116,7 +123,7 @@ def _decode(path: str):
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte)] = plte[:256]
         plte = pal
-    return samples, ctype, depth, plte
+    return samples, ctype, depth, plte, trns
 
 
 def _to8(samples: np.ndarray, ctype: int, depth: int) -> np.ndarray:
@@ -132,11 +139,41 @@ def _to8(samples: np.ndarray, ctype: int, depth: int) -> np.ndarray:
 def read(path: str) -> np.ndarray:
     """Decode a PNG to uint8 (h, w) for gray, (h, w, 2) gray+alpha, (h, w,
     3) RGB (palette images too) or (h, w, 4) RGBA."""
-    samples, ctype, depth, plte = _decode(path)
+    samples, ctype, depth, plte, _ = _decode(path)
     if ctype == 3:
         return plte[samples[..., 0]]
     samples = _to8(samples, ctype, depth)
     return samples[..., 0] if samples.shape[2] == 1 else samples
+
+
+def read_unchanged(path: str) -> np.ndarray:
+    """Decode a PNG as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does, in
+    RGB order (the caller swaps to OpenCV's BGR): gray (h, w) (a ``tRNS``
+    ignored), gray+alpha as (h, w, 4) with the gray repeated, RGB (h, w, 3),
+    RGBA (h, w, 4); a palette or RGB image with ``tRNS`` gains its alpha
+    channel (palette entries past the table and colours other than the
+    transparent one opaque). 16-bit samples stay uint16, gray below 8 bits
+    is scaled to 0-255."""
+    samples, ctype, depth, plte, trns = _decode(path)
+    if ctype == 3:
+        rgb = plte[samples[..., 0]]
+        if trns is None:
+            return rgb
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
+        return np.concatenate([rgb, alpha[samples[..., :1]]], axis=2)
+    if depth < 8:
+        samples = _to8(samples, ctype, depth)
+    if ctype == 0:
+        return samples[..., 0]
+    if ctype == 4:
+        return np.concatenate([np.repeat(samples[..., :1], 3, axis=2), samples[..., 1:]], 2)
+    if ctype == 2 and trns is not None and len(trns) >= 6:
+        key = np.frombuffer(trns[:6], ">u2").astype(samples.dtype)
+        top = np.iinfo(samples.dtype).max
+        alpha = np.where((samples == key).all(axis=2), 0, top).astype(samples.dtype)
+        return np.concatenate([samples, alpha[..., None]], axis=2)
+    return samples
 
 
 # libpng's rgb_to_gray weights as OpenCV sets them (0.299, 0.587 -> 15-bit
@@ -149,7 +186,7 @@ def read_gray(path: str) -> np.ndarray:
     cv2.IMREAD_GRAYSCALE)`` does: gray as stored (alpha dropped), colour
     through libpng's (9797 R + 19234 G + 3737 B) >> 15, which rounds
     (+ 2^14) only for 16-bit samples, then keeps their high byte."""
-    samples, ctype, depth, plte = _decode(path)
+    samples, ctype, depth, plte, _ = _decode(path)
     if ctype in (0, 4):
         return np.ascontiguousarray(_to8(samples, ctype, depth)[..., 0])
     rgb = (plte[samples[..., 0]] if ctype == 3 else samples[..., :3]).astype(np.int64)

@@ -9,10 +9,10 @@ region of interest and view-neighbour files, the visibility filter of the
 dense cloud, and the pyOpenMVS-parity methods (``dense_reconstruction`` ->
 ``reconstruct_mesh`` -> ``clean_mesh`` -> ``refine_mesh`` ->
 ``texture_mesh``, ``save_pointcloud``, ``load_mesh``, ``save_mesh``), the
-device stages with a ``device`` argument. Not ported: the reference's boost
-"MVS project" archives (``io/boost_archive``, ROADMAP Queue 1, item 8),
-``align_to``, ``apply_transform``, ``scale_images`` and
-``compute_leveled_volume`` (the ``transform`` subcommand's methods).
+device stages with a ``device`` argument, and the scene transforms of the
+``transform`` subcommand (``align_to``, ``apply_transform``,
+``transform34``, ``scale_images``, ``compute_leveled_volume``). Not
+ported: the reference's boost "MVS project" archives (``io/boost_archive``).
 """
 
 from __future__ import annotations
@@ -281,6 +281,57 @@ class Scene:
 
     def is_bounded(self) -> bool:
         return bool(np.any(self.obb_max - self.obb_min > 0))
+
+    # --------------------------------------------------------- transforms
+    def align_to(self, ref_scene: "Scene") -> np.ndarray:
+        """Estimate + apply the similarity aligning this scene onto
+        ref_scene via matched camera centers (Scene::AlignTo,
+        Scene.cpp:1588-1620).  Returns the 4x4 transform."""
+        from openmvs_tpu_torch.geometry.similarity import align_scenes
+
+        return align_scenes(self, ref_scene)
+
+    def apply_transform(self, T: np.ndarray):
+        """Apply a 4x4 similarity transform to the whole scene
+        (Scene::Transform role, reference Scene.cpp:1445-1530): platform
+        poses, point cloud, mesh and OBB all move together."""
+        T = np.asarray(T, np.float64)
+        A = T[:3, :3]
+        t = T[:3, 3]
+        s = float(np.cbrt(max(np.linalg.det(A), 1e-30)))
+        Q = A / s  # rotation part
+        for plat in self.platforms:
+            for pose in plat.poses:
+                pose.R = pose.R @ Q.T
+                pose.C = A @ pose.C + t
+        for img in self.images:
+            # recompose from the transformed pose exactly as the reference's
+            # image.UpdateCamera(platforms) does (Scene.cpp:1545-1548) — a
+            # direct camera transform would scale the rig lever arm, which
+            # the pose update deliberately does not, so the live camera
+            # would diverge from its own save/reload composition
+            m = img.meta
+            if (0 <= m.platform_id < len(self.platforms)
+                    and 0 <= m.pose_id < len(self.platforms[m.platform_id].poses)):
+                plat = self.platforms[m.platform_id]
+                rig = plat.cameras[m.camera_id]
+                pose = plat.poses[m.pose_id]
+                img.camera = Camera(img.camera.K, rig.R @ pose.R,
+                                    pose.R.T @ rig.C + pose.C)
+            else:
+                img.camera = Camera(img.camera.K, img.camera.R @ Q.T,
+                                    A @ img.camera.C + t)
+        if len(self.pointcloud.points):
+            self.pointcloud.points = (
+                self.pointcloud.points @ A.T + t
+            ).astype(np.float32)
+            if self.pointcloud.has_normals:
+                self.pointcloud.normals = (
+                    self.pointcloud.normals @ Q.T
+                ).astype(np.float32)
+        if len(self.mesh.vertices):
+            self.mesh.vertices = (self.mesh.vertices @ A.T + t).astype(np.float32)
+        self.transform = T @ self.transform
 
     def estimate_roi(self, mode: int = 1, scale: float = 1.1) -> bool:
         """Estimate the region of interest from cameras + sparse cloud
@@ -632,6 +683,51 @@ class Scene:
         else:
             self.mesh.save_ply(path)
 
+    def scale_images(self, max_resolution: int = 0, scale: float = 1.0,
+                     folder: str = "") -> int:
+        """pyOpenMVS Scene.scale_images (Scene::ScaleImages role,
+        Scene.cpp:1507): resize loaded images by `scale` (or to fit
+        max_resolution), optionally writing the resized files to `folder`;
+        returns the number of images resized.  Cameras need no update: the
+        per-resolution K scaling happens at use time (Camera.scaled)."""
+        n = 0
+        for img in self.images:
+            if img.gray is None:
+                img.load()
+            w, h = img.width, img.height
+            s = scale
+            if max_resolution > 0 and max(w, h) * s > max_resolution:
+                s = max_resolution / max(w, h)
+            if s >= 1.0 - 1e-9:
+                continue
+            nw, nh = max(1, round(w * s)), max(1, round(h * s))
+            img.gray = imio.resize_area(img.gray, nw, nh)
+            if img.color is not None:
+                img.color = imio.resize_area(img.color, nw, nh)
+            # keep the native camera consistent with the new native size
+            # (reload self-corrects from the file header, SceneImage.load)
+            img.camera = img.camera.scaled(max(nw, nh) / max(w, h))
+            img.width, img.height = nw, nh
+            n += 1
+            if folder:
+                os.makedirs(folder, exist_ok=True)
+                out = os.path.join(folder, os.path.basename(img.meta.name))
+                src = img.color if img.color is not None else img.gray
+                arr = np.clip(src * 255.0, 0, 255).astype(np.uint8) \
+                    if src.dtype != np.uint8 else src
+                imio.imwrite(out, arr[..., ::-1] if arr.ndim == 3 else arr)
+                img.meta.name = out
+                img.path = out
+        return n
+
+    def transform34(self, T: np.ndarray) -> None:
+        """pyOpenMVS Scene.transform34: apply a 3x4 [R|t] (PythonWrapper
+        .cpp:127)."""
+        T = np.asarray(T, np.float64).reshape(3, 4)
+        T4 = np.eye(4)
+        T4[:3] = T
+        self.apply_transform(T4)
+
     def dense_reconstruction(self, resolution_level: int = 0,
                              fusion_mode: int = 0, crop_to_roi: bool = True,
                              roi_border: float = 0.0, device="cuda",
@@ -712,3 +808,62 @@ class Scene:
         self.mesh = _texture(self, self.mesh, opts, device=device)
         return self.mesh.has_texture
 
+    def compute_leveled_volume(self, plane_threshold: float = 20.0,
+                               sample_mesh: float = -100000,
+                               up_axis: int = 2) -> float:
+        """pyOpenMVS Scene.compute_leveled_volume (Scene::
+        ComputeLeveledVolume, Scene.cpp:1621-1646): estimate the ground
+        plane, rotate the scene so `up_axis` aligns with its normal with
+        the plane through the origin, then return the mesh volume
+        (divergence theorem over faces).  The open ground-contact boundary
+        closes implicitly against the z=0 plane."""
+        from openmvs_tpu_torch import mesh_ops
+        from openmvs_tpu_torch.geometry.similarity import estimate_ground_plane
+
+        if len(self.mesh.faces) == 0:
+            raise ValueError("no mesh to compute volume of")
+        if plane_threshold >= 0:
+            # sample_mesh semantics per the reference (Scene.cpp:1619):
+            # 0 disabled (use vertices), <0 sample |n| surface points,
+            # >0 sample density per square unit of surface area
+            pts = self.mesh.vertices
+            if sample_mesh < 0:
+                pts = mesh_ops.sample_points(
+                    self.mesh, int(-sample_mesh), seed=0)[0]
+            elif sample_mesh > 0:
+                areas = mesh_ops.face_areas(self.mesh)
+                n_pts = max(1, int(round(float(areas.sum()) * sample_mesh)))
+                pts = mesh_ops.sample_points(self.mesh, n_pts, seed=0)[0]
+            n, d = estimate_ground_plane(np.asarray(pts, np.float64),
+                                         threshold=plane_threshold
+                                         if plane_threshold > 0 else 0.0)
+            up = np.zeros(3)
+            up[up_axis] = 1.0
+            if float(n @ up) < 0:
+                n, d = -n, -d
+            # rotate n -> up, then translate the plane to the origin
+            R = _rotation_between(n, up)
+            center = self.mesh.vertices.mean(axis=0).astype(np.float64)
+            foot = center - (float(n @ center) + d) * n
+            T = np.eye(4)
+            T[:3, :3] = R
+            T[:3, 3] = -R @ foot
+            self.apply_transform(T)
+        return mesh_ops.compute_volume(self.mesh)
+
+
+def _rotation_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Minimal rotation taking unit vector a to unit vector b."""
+    v = np.cross(a, b)
+    c = float(np.dot(a, b))
+    if c < -1 + 1e-12:
+        # 180 degrees: any axis orthogonal to a
+        axis = np.cross(a, [1.0, 0.0, 0.0])
+        if np.linalg.norm(axis) < 1e-8:
+            axis = np.cross(a, [0.0, 1.0, 0.0])
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        return -np.eye(3) + 2 * np.outer(axis, axis)
+    K = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+    return np.eye(3) + K + K @ K / (1 + c)

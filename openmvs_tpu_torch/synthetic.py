@@ -70,16 +70,36 @@ def camera_center(i: int) -> np.ndarray:
     return np.array([-1.6 + 0.8 * i, 0.15 * (i % 2), 0.0])
 
 
+def undistort_normalized(xd: np.ndarray, yd: np.ndarray, dist, iters: int = 40
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """The normalized pinhole coordinates (x, y) that OpenCV's distortion
+    model with coefficients (k1, k2, p1, p2) sends to (xd, yd), by the
+    fixed-point iteration of ``cv2.undistortPoints`` (converged to float64
+    for coefficients of ``DISTORTION``'s size)."""
+    k1, k2, p1, p2 = (float(v) for v in dist)
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + (k2 * r2 + k1) * r2)
+        x = (xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) * icdist
+        y = (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) * icdist
+    return x, y
+
+
 def ray_march(K: np.ndarray, C: np.ndarray, W: int, H: int,
               t_lo: float = 4.5, t_hi: float = 7.5, step: float = 0.02,
-              bisect_iters: int = 40) -> Tuple[np.ndarray, np.ndarray]:
+              bisect_iters: int = 40, dist=None) -> Tuple[np.ndarray, np.ndarray]:
     """Depth (0 = miss) and the (x, y) surface point of every pixel of a
-    camera with identity rotation centred at C (depth == ray parameter)."""
+    camera with identity rotation centred at C (depth == ray parameter).
+    With ``dist`` (OpenCV's k1, k2, p1, p2) the camera is distorted: each
+    pixel's ray is the undistortion of its normalized coordinates."""
     uu, vv = np.meshgrid(np.arange(W, dtype=np.float64),
                          np.arange(H, dtype=np.float64))
     Kinv = np.linalg.inv(K)
     dx = Kinv[0, 0] * uu + Kinv[0, 1] * vv + Kinv[0, 2]
     dy = Kinv[1, 1] * vv + Kinv[1, 2]
+    if dist is not None:
+        dx, dy = undistort_normalized(dx, dy, dist)
 
     def g(t):
         return C[2] + t - height(C[0] + t * dx, C[1] + t * dy)
@@ -108,8 +128,8 @@ def ray_march(K: np.ndarray, C: np.ndarray, W: int, H: int,
 
 
 def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
-                   grid: int = 96, seed: int = 0, color: bool = False
-                   ) -> Tuple[Scene, List[np.ndarray], dict]:
+                   grid: int = 96, seed: int = 0, color: bool = False,
+                   dist=None) -> Tuple[Scene, List[np.ndarray], dict]:
     """(scene, gt_depths, arrays): the port's Scene, per-view float32
     ground-truth depth maps (0 where a ray misses the surface), and the
     arrays the scene was built from (for ``scene_from_arrays`` on either
@@ -118,7 +138,9 @@ def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
     (H, W, 3) uint8 color image (``albedo`` x 255, smoothed alike), in
     ``arrays["colors"]`` and on the scene's images: texturing reads it, and
     densify's fusion then colors its points. The gray does not depend on
-    it."""
+    it. With ``dist`` (OpenCV's k1, k2, p1, p2) the images are those of
+    the distorted camera (``ray_march``); the scene's cameras are K's
+    pinhole, so only an undistorted copy of the images fits them."""
     rng = np.random.default_rng(seed)
     g = np.linspace(-3, 3, grid)
     xx, yy = np.meshgrid(g, g)
@@ -128,7 +150,7 @@ def build_gt_scene(n_views: int = 5, W: int = 320, H: int = 240,
     grays, colors, gts, Cs = [], [], [], []
     # the views' ray marches are independent numpy work: run them on threads
     with ThreadPoolExecutor(max_workers=max(1, min(n_views, os.cpu_count() or 1))) as ex:
-        marched = list(ex.map(lambda i: ray_march(K, camera_center(i), W, H),
+        marched = list(ex.map(lambda i: ray_march(K, camera_center(i), W, H, dist=dist),
                               range(n_views)))
     for i in range(n_views):
         C = camera_center(i)
@@ -197,3 +219,80 @@ def write_scene_files(folder: str, n_views: int = 5, W: int = 1280, H: int = 960
     mvs = os.path.join(folder, "scene.mvs")
     scene.save(mvs)
     return mvs, digests, gts, arrays
+
+
+# OpenCV (k1, k2, p1, p2) of the distorted camera of ``write_eth3d_files``:
+# a consumer lens's size, about 7 px of barrel at the corners of 1280x960
+DISTORTION = (-0.12, 0.04, 4e-4, -3e-4)
+
+
+def _write_colmap_text(folder: str, model: str, params, W: int, H: int,
+                       names: List[str], centers: List[np.ndarray],
+                       points: np.ndarray, rgb: np.ndarray) -> None:
+    """A COLMAP text model: one camera, identity rotations (qvec 1 0 0 0,
+    tvec = -C), every point seen by every image."""
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "cameras.txt"), "w") as f:
+        f.write(f"1 {model} {W} {H} " + " ".join(repr(float(v)) for v in params) + "\n")
+    with open(os.path.join(folder, "images.txt"), "w") as f:
+        for i, (name, C) in enumerate(zip(names, centers)):
+            t = " ".join(repr(float(v)) for v in -np.asarray(C, np.float64))
+            f.write(f"{i + 1} 1 0 0 0 {t} 1 {name}\n\n")
+    with open(os.path.join(folder, "points3D.txt"), "w") as f:
+        track = " ".join(f"{i + 1} 0" for i in range(len(names)))
+        for k, (X, c) in enumerate(zip(points.astype(np.float64), rgb)):
+            xyz = " ".join(repr(float(v)) for v in X)
+            f.write(f"{k + 1} {xyz} {c[0]} {c[1]} {c[2]} 0.5 {track}\n")
+
+
+def write_eth3d_files(folder: str, n_views: int = 5, W: int = 1280, H: int = 960,
+                      seed: int = 0, dist=DISTORTION, gt_grid: int = 800
+                      ) -> Tuple[dict, List[np.ndarray]]:
+    """The colored scene of ``build_gt_scene`` seen through a distorted
+    camera (OpenCV k1, k2, p1, p2 = ``dist``), written as an ETH3D
+    training scene: ``images/dslr_images/viewNNNN.jpg`` (quality 95,
+    ``io/images.write_image``), the calibration as a COLMAP text model with
+    an OPENCV camera in ``dslr_calibration_jpg/`` (ETH3D's folder for its
+    distorted images), the same model as PINHOLE with the coefficients
+    dropped in ``pinhole_calibration/`` (a control: what importing without
+    undistortion gives), and ground truth in ``scan_clean/scan.ply``: the
+    height field sampled on a gt_grid x gt_grid lattice over [-3, 3]^2,
+    kept where a view's pinhole projection lands inside its image. Returns
+    ({file name: sha256} of the images, the ground-truth depth maps)."""
+    import hashlib
+
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.io import ply as plyio
+
+    scene, gts, arrays = build_gt_scene(n_views=n_views, W=W, H=H, seed=seed,
+                                        color=True, dist=dist)
+    img_dir = os.path.join(folder, "images", "dslr_images")
+    os.makedirs(img_dir, exist_ok=True)
+    digests, names = {}, []
+    for i in range(n_views):
+        name = f"view{i:04d}.jpg"
+        path = os.path.join(img_dir, name)
+        imio.write_image(path, arrays["colors"][i])
+        with open(path, "rb") as f:
+            digests[name] = hashlib.sha256(f.read()).hexdigest()
+        names.append(f"images/dslr_images/{name}")
+    K = camera_intrinsics(W, H)
+    pts = arrays["points"]
+    rgb = np.full((len(pts), 3), 128, np.uint8)
+    pin = [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
+    _write_colmap_text(os.path.join(folder, "dslr_calibration_jpg"), "OPENCV",
+                       pin + list(dist), W, H, names, arrays["Cs"], pts, rgb)
+    _write_colmap_text(os.path.join(folder, "pinhole_calibration"), "PINHOLE",
+                       pin, W, H, names, arrays["Cs"], pts, rgb)
+    g = np.linspace(-3, 3, gt_grid)
+    xx, yy = np.meshgrid(g, g)
+    X = np.stack([xx, yy, height(xx, yy)], -1).reshape(-1, 3)
+    seen = np.zeros(len(X), bool)
+    for C in arrays["Cs"]:
+        p = (X - C) @ K.T
+        u, v = p[:, 0] / p[:, 2], p[:, 1] / p[:, 2]
+        seen |= (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    os.makedirs(os.path.join(folder, "scan_clean"), exist_ok=True)
+    plyio.save_point_cloud(os.path.join(folder, "scan_clean", "scan.ply"),
+                           X[seen].astype(np.float32))
+    return digests, gts

@@ -7,8 +7,9 @@ against the JAX package's, on the CPU.
   export reads back to the same interface.
 - OpenMVG ``sfm_data.json`` and ``sfm_data.bin``: import equal to the JAX
   package's.
-- A distorted camera (nonzero coefficients) raises NotImplementedError,
-  where the JAX package would undistort the images with OpenCV.
+- A distorted camera (nonzero coefficients): both packages undistort the
+  images on import (the port's ``interfaces/undistort.py``, OpenCV's
+  ``cv2.undistort`` rebuilt) and write the same files.
 """
 
 import json
@@ -117,10 +118,38 @@ def test_colmap_quaternions_equal_jax():
 @pytest.mark.parametrize("model,params", [("SIMPLE_RADIAL", [580, 319, 241, 0.05]),
                                           ("OPENCV", [600, 600, 320, 240, -0.1, 0.01, 0, 0])])
 def test_colmap_distorted_model_raises(tmp_path, model, params):
+    """A distorted model's images are undistorted on import, as in the JAX
+    package: the same interface (image names pointing at the undistorted
+    copies) and the same files (JPEG bytes equal)."""
     folder = str(tmp_path / "sparse")
     _model(folder, [("PINHOLE", [600, 610, 320, 240]), (model, params)], False)
-    with pytest.raises(NotImplementedError, match="undistort"):
-        colmap.import_colmap(folder)
+    _write_images(str(tmp_path / "images"), 6)
+    port = colmap.import_colmap(folder, str(tmp_path / "images"),
+                                undistort_dir=str(tmp_path / "port_und"))
+    jax = jcolmap.import_colmap(folder, str(tmp_path / "images"),
+                                undistort_dir=str(tmp_path / "jax_und"))
+    for itf, und in ((port, "port_und"), (jax, "jax_und")):
+        for m in itf.images:
+            m.name = m.name.replace(und, "und")
+    _assert_equal(port, jax)
+    moved = sorted(os.listdir(tmp_path / "port_und"))
+    assert moved == sorted(os.listdir(tmp_path / "jax_und")) == ["im1.jpg", "im3.jpg", "im5.jpg"]
+    for name in moved:
+        assert ((tmp_path / "port_und" / name).read_bytes()
+                == (tmp_path / "jax_und" / name).read_bytes())
+
+
+def _write_images(folder, n, w=640, h=480):
+    """n smooth colour JPEGs im0.jpg ... (quality 95, PIL)."""
+    from PIL import Image
+    from scipy.ndimage import gaussian_filter
+
+    os.makedirs(folder, exist_ok=True)
+    r = np.random.default_rng(n)
+    for i in range(n):
+        img = gaussian_filter(r.uniform(0, 255, (h, w, 3)), (2, 2, 0))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(folder, f"im{i}.jpg"), quality=95)
 
 
 def test_colmap_unsupported_model_imports_its_pinhole_part(tmp_path):
@@ -131,9 +160,9 @@ def test_colmap_unsupported_model_imports_its_pinhole_part(tmp_path):
     _assert_equal(colmap.import_colmap(folder), jcolmap.import_colmap(folder))
 
 
-def _sfm_json(path, intrinsic):
+def _sfm_json(path, intrinsic, root="/imgs"):
     doc = {
-        "root_path": "/imgs",
+        "root_path": root,
         "views": [{"key": i, "value": {"ptr_wrapper": {"data": {
             "id_view": i, "id_intrinsic": i % 2, "id_pose": i if i < 4 else 99,
             "filename": f"im{i}.jpg"}}}} for i in range(5)],
@@ -169,16 +198,24 @@ def test_openmvg_json_and_bin_equal_jax(tmp_path):
 
 
 def test_openmvg_distorted_raises(tmp_path):
+    """A distorted intrinsic imports as in the JAX package: from JSON with
+    its images present (undistorted into the same files), and from the
+    cereal binary whose images are missing (each skipped with a warning)."""
     p = str(tmp_path / "sfm_data.json")
     _sfm_json(p, {"polymorphic_name": "pinhole_radial_k1", "ptr_wrapper": {"data": {
         "width": 800, "height": 600, "focal_length": 700.0, "principal_point": [400, 300],
-        "disto_k1": [-0.1]}}})
-    with pytest.raises(NotImplementedError, match="undistort"):
-        openmvg.import_openmvg(p)
+        "disto_k1": [-0.1]}}}, root=str(tmp_path / "imgs"))
+    _write_images(str(tmp_path / "imgs"), 5, 800, 600)
+    port = openmvg.import_openmvg(p, undistort_dir=str(tmp_path / "und"))
+    port_files = {n: (tmp_path / "und" / n).read_bytes()
+                  for n in sorted(os.listdir(tmp_path / "und"))}
+    _assert_equal(port, jopenmvg.import_openmvg(p, undistort_dir=str(tmp_path / "und")))
+    assert sorted(port_files) == ["im1.jpg", "im3.jpg"]
+    for name, data in port_files.items():
+        assert (tmp_path / "und" / name).read_bytes() == data
     b = str(tmp_path / "sfm_data.bin")
     _make_sfm_data_bin(b, distorted=True)
-    with pytest.raises(NotImplementedError, match="undistort"):
-        openmvg.import_openmvg(b)
+    _assert_equal(openmvg.import_openmvg(b), jopenmvg.import_openmvg(b))
 
 
 def test_cli_imports_write_the_jax_files(tmp_path):
