@@ -2,8 +2,10 @@
 """Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
 texturing and SGM densify paths, the whole chain densify -> mesh -> clean
 -> refine -> texture -> save, the same chain from files through the
-port's CLI, and a distorted SfM model imported, undistorted, densified,
-evaluated, transformed and split, on one NVIDIA GPU.
+port's CLI, a distorted SfM model imported, undistorted, densified,
+evaluated, transformed and split, the reference's project archives, and
+densify's remaining modes and switches with the dumps and viewers, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,8 +46,8 @@ Phases, each printing one JSON line:
                   into candidates, K3-mv, then the scorer with the terms
                   precomputed, and selection): launches, quality, and
                   agreement with phase densify's maps
-  8. parity     - the same scene at 120x160 on the card against the port's
-                  plain versions on the CPU
+  8. parity     - the same scene at 120x160 (3 views) on the card against
+                  the port's plain versions on the CPU
   9. geom_unfused - the 120x160 scene on the card under OMVS_GEOM_FUSED=0
                   (K3-mv, then the precomputed mode, in place of K2-mv)
                   against phase parity's card maps
@@ -161,8 +163,35 @@ Phases, each printing one JSON line:
                   counts and views equal with points within 5% (the
                   clouds differ by argmin flips), and the undistorted
                   cloud nearer the truth than the control's
-Each of phases 4, 5, 7, 9, 12, 14 and 15 sets the launch counts to 0 just
-before the path it drives and reads them just after. Then the {"kernels": [...]} line
+ 16. project    - the reference's boost "MVS project" archives on phase
+                  files' folder: scene.mvs with the mesh of its mesh command
+                  saved by Scene.save_project as TEXT, BINARY, BINARY_ZIP and
+                  BINARY_ZSTD (zstd left out, and said so, where the host's
+                  libzstd does not load; phase device prints whether it
+                  does) and read back equal to the .mvs load (seconds, file
+                  bytes); the C++ emitter's golden archive read and written
+                  back byte for byte; densify through __main__.main on the
+                  zstd project on the card (launches as phase files'),
+                  points within 1% of phase files'
+ 17. switches   - densify's remaining modes and switches: the flagged
+                  multi-view scorer (band skipping: K1-mv exact and nn,
+                  K2-mv) against score_views_plain with the same flags bit
+                  for bit, with half of the bands off and all on (equal to
+                  the unflagged kernel), CUDA-graph ms of each; with all
+                  bands off and NaN images and weights, the sentinel; a full
+                  densify under OMVS_ACTIVE=5e-3 with OMVS_EARLY_EXIT=0 beside
+                  the same run without OMVS_ACTIVE (seconds, share of band
+                  half-sweeps skipped, launches, points, quality held as
+                  phase densify's); three exact photometric and geometric
+                  sweeps with skipping through patchmatch.sweep (the flagged
+                  exact and K2-mv launches); at 120x160 the card against the
+                  CPU for two warp sweeps and one view under OMVS_ALL_EXACT
+                  and OMVS_EARLY_EXIT=0, held to phase parity's agreement;
+                  OMVS_PROFILE_DIR writing a trace; dump -o of a .dmap of
+                  phase project; render_mesh and export_html of phase
+                  pipeline's textured mesh
+Each of phases 4, 5, 7, 9, 12, 14, 15, 16 and 17 sets the launch counts to
+0 just before the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -372,7 +401,8 @@ MAIN_PATH = ("score_views_exact", "score_views_nn", "score_views_geom_exact")
 PER_VIEW = ("score_view_exact", "score_view_nn", "score_view_geom_exact",
             "score_view_geom_nn")
 # the {"kernels": [...]} line: (counter, source, TPU kernel replaced, the
-# phase whose run gives the launches)
+# phase whose run gives the launches; "switches" is phase switches' densify
+# under OMVS_ACTIVE, "sweeps" its exact and geometric sweeps with skipping)
 KERNEL_LINE = (
     ("score_views_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
     ("score_views_nn", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "densify"),
@@ -385,6 +415,11 @@ KERNEL_LINE = (
     ("geom_terms", "pm_geom_views.cu", "openmvs_tpu/ops/pm_kernel.py:691", "geom_split"),
     ("score_view_v2_exact", "pm_score_v2.cu", "scripts/dev_kernel_variants.py:282", "variants"),
     ("score_view_v2_nn", "pm_score_v2.cu", "scripts/dev_kernel_variants.py:282", "variants"),
+    ("score_views_act_nn", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819", "switches"),
+    ("score_views_act_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:819",
+     "switches_exact"),
+    ("score_views_geom_act_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:979",
+     "sweeps"),
 )
 
 
@@ -436,6 +471,7 @@ def phase_device():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     emit({"phase": "device", "image_decoders": _image_decoders()})
+    emit({"phase": "device", "libzstd": "loads" if _zstd_loads() else "absent"})
     return card
 
 
@@ -610,6 +646,14 @@ def _bound_views(C, H, W, T, V, img_px, dm_px, mode, geom):
     the (V, C, H, W) terms. Operations are V x K1's per view, less the
     view-independent warp part counted once, plus finish_view per view and
     K2's geometric term per view when fused."""
+    nbytes, flops = _views_work(C, H, W, T, V, img_px, dm_px, mode, geom)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _views_work(C, H, W, T, V, img_px, dm_px, mode, geom):
+    """(bytes, fp32 operations) of ``_bound_views``."""
     px = H * W
     cp = C * px
     nbytes = 4 * (V * (img_px + 26) + 3 * T + 2 * T * px + 7 * cp + 7 * px + cp)
@@ -620,9 +664,7 @@ def _bound_views(C, H, W, T, V, img_px, dm_px, mode, geom):
         flops += cp * V * FLOP_GEOM
     elif geom == "pre":
         nbytes += 4 * V * cp
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return nbytes, flops
 
 
 def _views_kernel_rows(card, scene, gts):
@@ -2188,6 +2230,7 @@ def phase_pipeline(card, scene, colored, pc):
                            f"below 0.98x the JAX package's {JAX_PIPELINE_WITHIN}")
     if not all(saved.values()):
         raise RuntimeError(f"saved files read back differently: {saved}")
+    return textured
 
 
 def _cli(args, timeout=900):
@@ -2367,8 +2410,8 @@ def _host_steps(main, scene_dir, dense_mvs, work, densify_args=()):
     return res, secs
 
 
-def phase_files(card):
-    """The port run as a user runs it, from files: the colored synthetic
+def phase_files(card, folder):
+    """The port run as a user runs it, from files, in ``folder``: the colored synthetic
     scene written as 5 JPEGs of 1280x960 (quality 95, PIL) and scene.mvs,
     densify through ``openmvs_tpu_torch.__main__.main`` in this process
     (launch counts set to 0 just before and read just after), then mesh,
@@ -2386,81 +2429,81 @@ def phase_files(card):
     from openmvs_tpu_torch.synthetic import write_scene_files
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    tmp = folder
+    t0 = time.perf_counter()
+    mvs, digests, _, _ = write_scene_files(tmp, 5, 1280, 960)
+    build_s = time.perf_counter() - t0
+    for name, digest in sorted(digests.items()):
+        print(f"sha256 {name} {digest}", flush=True)
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    # densify in this process, through the CLI's main
+    held = {}
+    dense = densify.dense_reconstruction
+    score = patchmatch.score_hypotheses
+    calls = [0]
+
+    def keep(scene, *a, **kw):
+        held["pc"] = dense(scene, *a, **kw)
+        held["views"] = [(im.width, im.height, im.gray.shape) for im in scene.images]
+        return held["pc"]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return score(*a, **kw)
+
+    stage_log = _StageLog()
+    logger = logging.getLogger("omvs_torch")
+    logger.addHandler(stage_log)
+    densify.dense_reconstruction = keep
+    patchmatch.score_hypotheses = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pm_kernel.reset_launches()
         t0 = time.perf_counter()
-        mvs, digests, _, _ = write_scene_files(tmp, 5, 1280, 960)
-        build_s = time.perf_counter() - t0
-        for name, digest in sorted(digests.items()):
-            print(f"sha256 {name} {digest}", flush=True)
+        cli.main(["densify", mvs])
+        torch.cuda.synchronize()
+        densify_s = time.perf_counter() - t0
+        launches = dict(pm_kernel.LAUNCHES)
+    finally:
+        densify.dense_reconstruction = dense
+        patchmatch.score_hypotheses = score
+        logger.removeHandler(stage_log)
+    densify_peak = torch.cuda.max_memory_allocated()
+    pc = held["pc"]
+    outcomes = [m for m in stage_log.messages
+                if re.search(r"tower|ROI|unbounded|camera directions", m)]
+    t0 = time.perf_counter()
+    back = Scene.load(path("scene_dense.mvs"))
+    ply_back = plyio.load(path("scene_dense.ply"))
+    read_s = time.perf_counter() - t0
+    dense_equal = {"scene_dense.mvs": _clouds_equal(back.pointcloud, pc),
+                   "scene_dense.ply": bool(np.array_equal(ply_back.vertices, pc.points))}
 
-        def path(name):
-            return os.path.join(tmp, name)
-
-        # densify in this process, through the CLI's main
-        held = {}
-        dense = densify.dense_reconstruction
-        score = patchmatch.score_hypotheses
-        calls = [0]
-
-        def keep(scene, *a, **kw):
-            held["pc"] = dense(scene, *a, **kw)
-            held["views"] = [(im.width, im.height, im.gray.shape) for im in scene.images]
-            return held["pc"]
-
-        def counted(*a, **kw):
-            calls[0] += 1
-            return score(*a, **kw)
-
-        stage_log = _StageLog()
-        logger = logging.getLogger("omvs_torch")
-        logger.addHandler(stage_log)
-        densify.dense_reconstruction = keep
-        patchmatch.score_hypotheses = counted
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            pm_kernel.reset_launches()
-            t0 = time.perf_counter()
-            cli.main(["densify", mvs])
-            torch.cuda.synchronize()
-            densify_s = time.perf_counter() - t0
-            launches = dict(pm_kernel.LAUNCHES)
-        finally:
-            densify.dense_reconstruction = dense
-            patchmatch.score_hypotheses = score
-            logger.removeHandler(stage_log)
-        densify_peak = torch.cuda.max_memory_allocated()
-        pc = held["pc"]
-        outcomes = [m for m in stage_log.messages
-                    if re.search(r"tower|ROI|unbounded|camera directions", m)]
-        t0 = time.perf_counter()
-        back = Scene.load(path("scene_dense.mvs"))
-        ply_back = plyio.load(path("scene_dense.ply"))
-        read_s = time.perf_counter() - t0
-        dense_equal = {"scene_dense.mvs": _clouds_equal(back.pointcloud, pc),
-                       "scene_dense.ply": bool(np.array_equal(ply_back.vertices, pc.points))}
-
-        dense_mvs = path("scene_dense.mvs")
-        commands = {
-            "mesh": ["mesh", dense_mvs, "--decimate", "0.5", "-o", path("mesh.ply")],
-            "refine": ["refine", dense_mvs, "-m", path("mesh.ply"), "--scales", "2",
-                       "--iters", "16", "-o", path("refined.ply")],
-            "texture": ["texture", dense_mvs, "-m", path("refined.ply"),
-                        "-o", path("textured.obj")],
-        }
-        runs = {name: _cli(args) for name, args in commands.items()}
-        raw = [re.match(r"surface: (\d+) vertices, (\d+) faces", ln)
-               for ln in runs["mesh"][2]]
-        raw_faces = int([m for m in raw if m][-1].group(2))
-        clean = plyio.load(path("mesh.ply"))
-        refined = plyio.load(path("refined.ply"))
-        v, f, tc, tex = objio.load_mesh_obj(path("textured.obj"))
-        textured = Mesh(vertices=v, faces=f, face_tex_coords=tc, texture=tex)
-        loading = _time_loading(back, path("rewritten.mvs"))
-        for img in back.images:
-            img.load()
-        fidelity, within = _file_color_fidelity(textured, back.images)
-        sizes = {n: os.path.getsize(path(n)) for n in sorted(os.listdir(tmp))}
+    dense_mvs = path("scene_dense.mvs")
+    commands = {
+        "mesh": ["mesh", dense_mvs, "--decimate", "0.5", "-o", path("mesh.ply")],
+        "refine": ["refine", dense_mvs, "-m", path("mesh.ply"), "--scales", "2",
+                   "--iters", "16", "-o", path("refined.ply")],
+        "texture": ["texture", dense_mvs, "-m", path("refined.ply"),
+                    "-o", path("textured.obj")],
+    }
+    runs = {name: _cli(args) for name, args in commands.items()}
+    raw = [re.match(r"surface: (\d+) vertices, (\d+) faces", ln)
+           for ln in runs["mesh"][2]]
+    raw_faces = int([m for m in raw if m][-1].group(2))
+    clean = plyio.load(path("mesh.ply"))
+    refined = plyio.load(path("refined.ply"))
+    v, f, tc, tex = objio.load_mesh_obj(path("textured.obj"))
+    textured = Mesh(vertices=v, faces=f, face_tex_coords=tc, texture=tex)
+    loading = _time_loading(back, path("rewritten.mvs"))
+    for img in back.images:
+        img.load()
+    fidelity, within = _file_color_fidelity(textured, back.images)
+    sizes = {n: os.path.getsize(path(n)) for n in sorted(os.listdir(tmp))}
     q_cloud = _mesh_height_quality(pc.points)
     q_clean = _mesh_height_quality(clean.vertices)
     q_refined = _mesh_height_quality(refined.vertices)
@@ -2511,7 +2554,7 @@ def phase_files(card):
                            f"below 0.98x the JAX CLI's {JAX_CLI['faces_within']}")
     if not np.isfinite(np.asarray(refined.vertices)).all():
         raise RuntimeError("refine produced non-finite vertices")
-    return q_cloud[0]
+    return {"error": q_cloud[0], "folder": folder, "points": len(pc)}
 
 
 def phase_imports(card, files_error):
@@ -2668,6 +2711,438 @@ def phase_imports(card, files_error):
                            f"against {q_ctrl[0]} imported as PINHOLE")
 
 
+def _zstd_loads():
+    """Whether the system libzstd loads for the project archives' BINARY_ZSTD
+    type (io/boost_archive._zstd)."""
+    from openmvs_tpu_torch.io import boost_archive
+
+    try:
+        boost_archive._zstd()
+        return True
+    except boost_archive.UnsupportedArchive:
+        return False
+
+
+def _scenes_equal(a, b):
+    """Project archive read back against the .mvs load: cameras (K through
+    the archive's normalised form, to float rounding), sizes and paths, the
+    cloud and the mesh exactly."""
+    import numpy as np
+
+    if len(a.images) != len(b.images):
+        return False
+    for x, y in zip(a.images, b.images):
+        if ((x.width, x.height) != (y.width, y.height)
+                or os.path.abspath(x.path) != os.path.abspath(y.path)
+                or not np.allclose(x.camera.K, y.camera.K, rtol=1e-5, atol=1e-4)
+                or not np.allclose(x.camera.R, y.camera.R, rtol=0, atol=1e-12)
+                or not np.allclose(x.camera.C, y.camera.C, rtol=0, atol=1e-12)):
+            return False
+    return (np.array_equal(a.pointcloud.points, b.pointcloud.points)
+            and all(np.array_equal(u, v) for u, v in zip(a.pointcloud.views, b.pointcloud.views))
+            and np.array_equal(a.mesh.vertices, b.mesh.vertices)
+            and np.array_equal(a.mesh.faces, b.mesh.faces))
+
+
+def phase_project(card, files):
+    """The reference's boost "MVS project" archives on phase files' folder:
+    scene.mvs with the mesh of its mesh command saved by Scene.save_project
+    in the four archive types and read back (each equal to the .mvs load;
+    seconds and bytes), the C++ emitter's golden archive read and written
+    back byte for byte, then ``python -m openmvs_tpu_torch densify`` (its
+    main, in this process) on the zstd project on the card, counts set to 0
+    just before and read just after: points within 1% of phase files'."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import __main__ as cli
+    from openmvs_tpu_torch import native
+    from openmvs_tpu_torch.io import boost_archive as bar
+    from openmvs_tpu_torch.io import ply as plyio
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.scene import Mesh, Scene
+
+    t_phase = time.perf_counter()
+    folder = files["folder"]
+    zstd = _zstd_loads()
+    ref = Scene.load(os.path.join(folder, "scene.mvs"))
+    mp = plyio.load(os.path.join(folder, "mesh.ply"))
+    ref.mesh = Mesh(vertices=mp.vertices.astype(np.float32), faces=mp.faces.astype(np.int32))
+    types = ["text", "binary", "zip"] + (["zstd"] if zstd else [])
+    io_rec = {}
+    for atype in types:
+        path = os.path.join(folder, f"project_{atype}.mvs")
+        t0 = time.perf_counter()
+        ref.save_project(path, archive_type=atype)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Scene.load(path)
+        read_s = time.perf_counter() - t0
+        io_rec[atype] = {"write_s": write_s, "read_s": read_s,
+                         "bytes": os.path.getsize(path), "equal": _scenes_equal(back, ref)}
+    golden = os.path.join(folder, "golden.mvs")
+    native.emit_test_project(golden)
+    rewritten = os.path.join(folder, "golden_rewritten.mvs")
+    bar.save_project(bar.load_project(golden), rewritten, archive_type="binary")
+    with open(golden, "rb") as f, open(rewritten, "rb") as g:
+        golden_equal = f.read() == g.read()
+
+    project = os.path.join(folder, f"project_{types[-1]}.mvs")
+    dmaps = os.path.join(folder, "project_dmaps")
+    score = patchmatch.score_hypotheses
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return score(*a, **kw)
+
+    patchmatch.score_hypotheses = counted
+    try:
+        torch.cuda.synchronize()
+        pm_kernel.reset_launches()
+        t0 = time.perf_counter()
+        _quiet(cli.main, ["densify", project, "--dmaps-folder", dmaps,
+                          "-o", os.path.join(folder, "project_dense.mvs")])
+        torch.cuda.synchronize()
+        densify_s = time.perf_counter() - t0
+        launches = dict(pm_kernel.LAUNCHES)
+    finally:
+        patchmatch.score_hypotheses = score
+    points = len(Scene.load(os.path.join(folder, "project_dense.mvs")).pointcloud)
+    rec = {"phase": "project", "zstd": "loads" if zstd else "absent",
+           "mesh_faces": len(ref.mesh.faces), "archives": io_rec,
+           "golden_rewritten_equal": golden_equal, "densify_archive": types[-1],
+           "densify_s": densify_s, "launches": launches,
+           "score_hypotheses_calls": calls[0], "points": points,
+           "files_points": files["points"], "phase_s": time.perf_counter() - t_phase,
+           "card": card}
+    emit(rec)
+    if not all(r["equal"] for r in io_rec.values()):
+        raise RuntimeError(f"a project archive reads back differently: {io_rec}")
+    if not golden_equal:
+        raise RuntimeError("the port's writer does not repeat the C++ emitter's bytes")
+    if any(launches[k] == 0 for k in MAIN_PATH):
+        raise RuntimeError(f"a scorer kernel was not launched from the project: {launches}")
+    _check_scoring(launches, calls[0])
+    if abs(points - files["points"]) > 0.01 * files["points"]:
+        raise RuntimeError(f"{points} points from the project, not within 1% of phase "
+                           f"files' {files['points']}")
+    return os.path.join(dmaps, "depth0000.dmap")
+
+
+def _bound_views_banded(C, H, W, T, V, img_px, dm_px, mode, geom, rows_on):
+    """The multi-view scorer's bound with band flags: the work of
+    ``_bound_views`` for the ``rows_on`` active rows, and for the skipped
+    pixels what their sentinel needs (bonus and delta read and the output
+    written a (c, p), f_blend and d0 a pixel; V finish_view folds a
+    (c, p)), plus the flags."""
+    nbytes, flops = _views_work(C, rows_on, W, T, V, img_px, dm_px, mode, geom)
+    off = (H - rows_on) * W
+    nbytes += 4 * (3 * C * off + 2 * off) + -(-H // 16)
+    flops += C * off * V * FLOP_FINISH
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# the flagged multi-view scorer: (counter, sampling mode, geometric mode)
+BAND_KERNELS = (("score_views_act_exact", "exact", "none"),
+                ("score_views_act_nn", "nn", "none"),
+                ("score_views_geom_act_exact", "exact", "geom"))
+
+
+def _band_kernel_rows(card, scene, gts):
+    """The flagged K1-mv (exact, nn) and K2-mv at the main path's operands
+    (C=11, 480x640, V=4) against score_views_plain with the same flags, bit
+    for bit, with half of the 30 bands flagged off and with all on (then
+    also equal to the unflagged kernel); CUDA-graph ms of both and of the
+    unflagged kernel, in this call. With every band off and the images and
+    weights all NaN, the output is the sentinel: no image value or texel
+    weight reached it."""
+    import torch
+
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+
+    dev = torch.device("cuda")
+    C = 11
+    data, opts, depth, normal, _ = _kernel_inputs(C, dev, scene, gts)
+    v = data.views
+    V = v.image.shape[0]
+    H, W = depth.shape[1:]
+    T = data.goff.shape[0]
+    th = float(opts.th_robust)
+    wg = float(opts.estimation_geometric_weight)
+    state = patchmatch.PMState(depth=depth[C // 2], normal=normal[0],
+                               conf=torch.zeros_like(depth[0]))
+    inv_nd, bonus, f_blend, delta = patchmatch.score_prelude(data, opts, state, depth, normal)
+    args = (v.image, v.size, v.Hl, v.Hm, depth, normal, inv_nd, data.X0, data.goff,
+            data.w, data.wtm, data.sum_w, data.norm_sq0, bonus, f_blend, delta,
+            data.lowres)
+    nb = -(-H // pm_kernel.BAND_ROWS)
+    half = (torch.arange(nb, device=dev) % 2 == 0).contiguous()
+    all_on = torch.ones(nb, dtype=torch.bool, device=dev)
+    all_off = torch.zeros(nb, dtype=torch.bool, device=dev)
+    rows = {}
+    for name, mode, geom in BAND_KERNELS:
+        kw = dict(th_robust=th, geom_weight=wg, nearest=mode == "nn")
+        if geom == "geom":
+            kw.update(Tr=v.Tr, Tn=v.Tn, dms=v.depth, uv=data.uv)
+        rec = {"phase": "switches", "kernel": name, "C": C, "V": V, "H": H, "W": W,
+               "T": T, "bands": nb, "bands_off_in_half": int((~half).sum())}
+        err = 0.0
+        for label, flags in (("half", half), ("all_on", all_on)):
+            out_k = pm_kernel.score_views(*args, band_act=flags, **kw)
+            torch.cuda.synchronize()
+            out_p = pm_kernel.score_views_plain(*args, band_act=flags, **kw)
+            torch.cuda.synchronize()
+            both_nan = torch.isnan(out_k) & torch.isnan(out_p)
+            err = max(err, float(torch.where(both_nan, 0.0, (out_k - out_p).abs()).max()))
+            torch.testing.assert_close(out_k, out_p, rtol=0, atol=0, equal_nan=True)
+            rec[f"equal_to_plain_{label}"] = True
+            rec[f"ms_{label}"] = cuda_ms(lambda f=flags: pm_kernel.score_views(
+                *args, band_act=f, **kw), 20, graph=True)
+        unflagged = pm_kernel.score_views(*args, **kw)
+        torch.testing.assert_close(out_k, unflagged, rtol=0, atol=0, equal_nan=True)
+        rec["all_on_equal_to_unflagged"] = True
+        rec["ms_unflagged"] = cuda_ms(lambda: pm_kernel.score_views(*args, **kw), 20,
+                                      graph=True)
+        rec["eager_ms_half"] = cuda_ms(lambda: pm_kernel.score_views(
+            *args, band_act=half, **kw), 20)
+        rec["plain_ms"] = cuda_ms(lambda: pm_kernel.score_views_plain(
+            *args, band_act=half, **kw), 3)
+        nan_args = list(args)
+        nan_args[0] = torch.full_like(v.image, float("nan"))
+        nan_args[9] = torch.full_like(data.w, float("nan"))
+        nan_args[10] = torch.full_like(data.wtm, float("nan"))
+        nkw = dict(kw, dms=torch.full_like(v.depth, float("nan"))) if geom == "geom" else kw
+        off_k = pm_kernel.score_views(*nan_args, band_act=all_off, **nkw)
+        off_p = pm_kernel.score_views_plain(*args, band_act=all_off, **kw)
+        torch.testing.assert_close(off_k, off_p, rtol=0, atol=0, equal_nan=True)
+        rec["all_off_reads_no_image"] = True
+        rows_on = int(pm_kernel.band_rows(half, H).sum())
+        rec["bound_ms_half"], rec["bound_by_half"] = _bound_views_banded(
+            C, H, W, T, V, v.image[0].numel(), v.depth[0].numel(), mode, geom, rows_on)
+        rec["bound_ms_all_on"], rec["bound_by_all_on"] = _bound_views(
+            C, H, W, T, V, v.image[0].numel(), v.depth[0].numel(), mode, geom)
+        rec["max_abs_err"] = err
+        rec["card"] = card
+        emit(rec)
+        rows[(name, C)] = dict(rec, ms=rec["ms_half"], bound_ms=rec["bound_ms_half"],
+                               bound_by=rec["bound_by_half"])
+    return rows
+
+
+def _band_counts():
+    """patchmatch.BANDS as ints (its skipped count is a device sum) and the
+    skipped share."""
+    from openmvs_tpu_torch.ops import patchmatch
+
+    counts = {k: int(v) for k, v in patchmatch.BANDS.items()}
+    return counts, counts["skipped"] / max(counts["scored"], 1)
+
+
+def _skipping_sweeps(scene, gts, eps):
+    """Three geometric exact sweeps of view 2 at 480x640 through
+    patchmatch.sweep, with conf_prev threaded as densify threads it and
+    ``eps`` from the third sweep on: the flagged K2-mv. No densify schedule
+    reaches it, in the port or the JAX package: a geometric pass is one
+    sweep, and skipping starts at the sweep OMVS_ACTIVE_FROM (default 2)
+    with the previous sweep's confidence. Counts set to 0 just before, read
+    just after; (launches, skipped share)."""
+    import torch
+
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+
+    dev = torch.device("cuda")
+    data, opts, depth, normal, _ = _kernel_inputs(1, dev, scene, gts)
+    V = data.views.image.shape[0]
+    patchmatch.BANDS.update(scored=0, skipped=0)
+    pm_kernel.reset_launches()
+    state = patchmatch.init_state(data, opts, (0, 7), depth[0], normal[0], V, True,
+                                  mode="exact")
+    prev = None
+    for it in range(3):
+        this = state.conf
+        state = patchmatch.sweep(state, data, opts, (0, 7), V, True, mode="exact",
+                                 fold=it + 1, active_eps=eps if it >= 2 else 0.0,
+                                 conf_prev=prev)
+        prev = this
+    torch.cuda.synchronize()
+    return dict(pm_kernel.LAUNCHES), _band_counts()[1]
+
+
+def _warp_card_vs_cpu():
+    """Two warp sweeps of view 0 of the 120x160 scene on the card and on the
+    CPU, from the same init: (mask agreement, depth agreement to 1e-3)."""
+    import numpy as np
+
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import patchmatch
+    from openmvs_tpu_torch.synthetic import build_gt_scene
+
+    scene, gts, _ = build_gt_scene(n_views=3, W=160, H=120)
+    opts = DenseOptions()
+    cams = [im.working_camera() for im in scene.images]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = densify._build_pm_data(scene.images[0].gray, cams[0],
+                                      [im.gray for im in scene.images[1:]], cams[1:],
+                                      opts, 4.5, 7.5, None, None, device=dev)
+        seed = np.where(gts[0] > 0, gts[0] * 1.02, 6.0).astype(np.float32)
+        sn = np.tile(np.array([0, 0, -1], np.float32), seed.shape + (1,))
+        state = patchmatch.init_state(data, opts, (0, 3), seed, sn, 2, False, mode="exact")
+        for it in range(2):
+            state = patchmatch.sweep(state, data, opts, (0, 3), 2, False, mode="warp",
+                                     fold=it + 1)
+        out[dev] = state.depth.cpu().numpy()
+    a, b = out["cuda"], out["cpu"]
+    va, vb = a > 0, b > 0
+    both = va & vb
+    return (float((va == vb).mean()),
+            float((np.abs(a - b)[both] < 1e-3 * b[both]).mean()) if both.any() else 1.0)
+
+
+def _switch_card_vs_cpu(env):
+    """View 0's photometric estimate_depth_map of the 120x160 scene
+    (DenseOptions()) under ``env`` on the card and on the CPU: mask and
+    depth agreement, and the seconds of each (a whole densify on this
+    host's CPU takes over a minute at this size)."""
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.synthetic import build_gt_scene
+    from openmvs_tpu_torch.view_selection import select_views_for_scene
+
+    scene, _, _ = build_gt_scene(n_views=3, W=160, H=120)
+    select_views_for_scene(scene, DenseOptions())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    maps, secs = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            maps[dev] = densify.estimate_depth_map(scene, 0, DenseOptions(), device=dev).depth
+            secs[dev] = time.perf_counter() - t0
+    finally:
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
+    m, d, _ = _agreement([maps["cuda"]], [maps["cpu"]])
+    return {"mask_agreement": m[0], "depth_agreement": d[0], "cuda_s": secs["cuda"],
+            "cpu_s": secs["cpu"]}
+
+
+def phase_switches(card, scene, gts, textured, dmap_path):
+    """densify's remaining modes and switches on the card: the flagged
+    scorer against its plain version (_band_kernel_rows); a full densify
+    under OMVS_ACTIVE=5e-3 with OMVS_EARLY_EXIT=0 (so that nn search sweeps
+    run one by one and may skip; with the early-exit block, the default,
+    no sweep is eligible) against the same run without OMVS_ACTIVE, both
+    with counts set to 0 just before and read just after: seconds, the
+    share of band half-sweeps skipped, launches, points, quality held to
+    phase densify's 95%-of-JAX bounds; the same under OMVS_ALL_EXACT=1
+    OMVS_ACTIVE=5e-3 (no mode switch, so exact sweeps skip: the flagged
+    exact K1-mv); the flagged K2-mv through patchmatch.sweep, which no
+    densify schedule reaches (_skipping_sweeps); at 120x160 the card against the CPU
+    (two warp sweeps, and one view's estimate under OMVS_ALL_EXACT and
+    under OMVS_EARLY_EXIT=0) held to phase parity's agreement,
+    OMVS_PROFILE_DIR writing a trace; dump -o of a
+    .dmap; render_mesh and export_html of phase pipeline's textured
+    mesh."""
+    import numpy as np
+
+    from openmvs_tpu_torch import __main__ as cli
+    from openmvs_tpu_torch import densify, viewer, viewer_web
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import patchmatch
+    from openmvs_tpu_torch.synthetic import build_gt_scene, depth_quality
+
+    t_phase = time.perf_counter()
+    rows = _band_kernel_rows(card, scene, gts)
+    n = len(scene.images)
+    runs = {}
+    for label, env in (("early_exit_0", {"OMVS_EARLY_EXIT": "0"}),
+                       ("active", {"OMVS_EARLY_EXIT": "0", "OMVS_ACTIVE": "5e-3"}),
+                       ("all_exact_active", {"OMVS_ALL_EXACT": "1", "OMVS_ACTIVE": "5e-3"})):
+        patchmatch.BANDS.update(scored=0, skipped=0)
+        pc, maps, wall, launches, stages, calls = _run_densify(scene, env=env)
+        q = [depth_quality(maps[i], gts[i]) for i in range(n)]
+        counts, share = _band_counts()
+        runs[label] = {"env": env, "wall_s": wall, "stages_s": stages, "points": len(pc),
+                       "launches": launches, "score_hypotheses_calls": calls,
+                       "band_half_sweeps": counts, "skipped_share": share,
+                       "accuracy": [a for a, _ in q], "completeness": [c for _, c in q]}
+        _check_scoring(launches, calls)
+        _check_quality(q)
+    sweep_launches, sweep_skipped = _skipping_sweeps(scene, gts, 5e-3)
+
+    small = {label: _switch_card_vs_cpu(env) for label, env in (
+        ("all_exact", {"OMVS_ALL_EXACT": "1"}), ("early_exit_0", {"OMVS_EARLY_EXIT": "0"}))}
+    small["warp"] = dict(zip(("mask_agreement", "depth_agreement"), _warp_card_vs_cpu()))
+    with tempfile.TemporaryDirectory() as tmp:
+        # a one-sweep, one-level schedule keeps the trace to a few thousand
+        # launches
+        s, _, _ = build_gt_scene(n_views=2, W=160, H=120)
+        os.environ["OMVS_PROFILE_DIR"] = tmp
+        try:
+            densify.dense_reconstruction(s, DenseOptions(
+                sub_resolution_levels=0, estimation_iters=1, estimation_geometric_iters=0),
+                device="cuda")
+        finally:
+            os.environ.pop("OMVS_PROFILE_DIR")
+        trace = os.path.join(tmp, "densify.json")
+        trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace) as f:
+            trace_events = len(json.load(f).get("traceEvents", []))
+        dump_dir = os.path.join(tmp, "dump")
+        _quiet(cli.main, ["dump", dmap_path, "-o", dump_dir])
+        pngs = sorted(os.listdir(dump_dir))
+        t0 = time.perf_counter()
+        frame = viewer.render_mesh(textured)
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        page = viewer_web.export_html(s, os.path.join(tmp, "view.html"))
+        with open(page) as f:
+            html = f.read()
+        export_s = time.perf_counter() - t0
+        s.mesh = textured
+        textured_page = viewer_web.export_html(s, os.path.join(tmp, "textured.html"))
+        textured_bytes = os.path.getsize(textured_page)
+        with open(textured_page) as f:
+            has_atlas = '"tex_png"' in f.read()
+    hit_share = float((frame != np.array([24, 24, 28], np.uint8)).any(-1).mean())
+    rec = {"phase": "switches", "H": 480, "W": 640, "densify": runs,
+           "skipping_sweeps": {"launches": sweep_launches, "skipped_share": sweep_skipped},
+           "card_vs_cpu_120x160": small,
+           "profile_trace": {"bytes": trace_bytes, "events": trace_events},
+           "dump_pngs": pngs,
+           "render_mesh": {"shape": list(frame.shape), "covered_share": hit_share,
+                           "s": render_s, "faces": len(textured.faces)},
+           "export_html": {"bytes": len(html), "s": export_s,
+                           "textured_bytes": textured_bytes, "atlas": has_atlas},
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(rec)
+    for label, key in (("active", "score_views_act_nn"),
+                       ("all_exact_active", "score_views_act_exact")):
+        if runs[label]["launches"][key] == 0:
+            raise RuntimeError(f"{label}: no {key} launch: {runs[label]['launches']}")
+    if sweep_launches["score_views_geom_act_exact"] == 0:
+        raise RuntimeError(f"the flagged geometric scorer was not launched: {sweep_launches}")
+    for label, r in small.items():
+        if r["mask_agreement"] <= 0.99 or r["depth_agreement"] <= 0.99:
+            raise RuntimeError(f"{label}: card and CPU disagree: {r}")
+    if trace_events == 0:
+        raise RuntimeError("OMVS_PROFILE_DIR wrote no trace events")
+    if pngs != ["conf0000.png", "depth0000.png", "normal0000.png"]:
+        raise RuntimeError(f"dump -o wrote {pngs}")
+    if not hit_share > 0.05 or not has_atlas or '"cam_lines"' not in html:
+        raise RuntimeError("the viewers rendered nothing of the scene")
+    return rows, runs["active"]["launches"], runs["all_exact_active"]["launches"], \
+        sweep_launches
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -2699,8 +3174,14 @@ def main():
     phase_refine(card, scene)
     phase_texture(card, colored)
     phase_sgm(card, scene, gts)
-    phase_pipeline(card, scene, colored, dense)
-    phase_imports(card, phase_files(card))
+    textured = phase_pipeline(card, scene, colored, dense)
+    with tempfile.TemporaryDirectory() as folder:
+        files = phase_files(card, folder)
+        dmap = phase_project(card, files)
+        (band_rows, launches["switches"], launches["switches_exact"],
+         launches["sweeps"]) = phase_switches(card, scene, gts, textured, dmap)
+        rows.update(band_rows)
+    phase_imports(card, files["error"])
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
         r = rows[(name, 11)]

@@ -8,3 +8,13 @@ needs are kept here as copies.
 Entry points take ``device="cuda"`` by default and raise without a card;
 ``device="cpu"`` runs every kernel's plain version.
 """
+
+
+def _install_safety_hooks() -> None:
+    """Env-gated NaN debug hooks (``utils/safety.py``)."""
+    from openmvs_tpu_torch.utils import safety
+
+    safety.install()
+
+
+_install_safety_hooks()

@@ -18,16 +18,17 @@ subcommands, options and outputs, running the port's stages:
   python -m openmvs_tpu_torch transform   scene.mvs [--matrix m.txt | --align-file ref.mvs
                                           | --max-resolution N | --compute-volume] -o out.mvs
   python -m openmvs_tpu_torch eval        --dataset eth3d|dtu --scene DIR (--est cloud.ply | --run)
-  python -m openmvs_tpu_torch dump        scene.mvs depth0000.dmap ...
+  python -m openmvs_tpu_torch view        scene.mvs [-m mesh.ply] [-o scene.html] [--serve 8080]
+  python -m openmvs_tpu_torch dump        scene.mvs depth0000.dmap ... [-o out/]
 
 One addition: ``densify``, ``refine``, ``texture`` and ``eval`` take
 ``--device`` (default ``cuda``, which raises without a card; ``cpu`` runs
 every kernel's plain version). Every DenseOptions/MeshOptions/... field is
 settable via --<kebab-name>, as in the reference apps
 (DensifyPointCloud.cpp:94-205). The importers undistort the images of a
-distorted camera (``interfaces/undistort.py``). ``view`` (the WebGL
-viewer) and ``dump -o`` of a ``.dmap`` are not ported and raise
-NotImplementedError naming their ROADMAP item.
+distorted camera (``interfaces/undistort.py``). Every command that loads
+a scene reads ``.mvs`` interface files and the reference's boost "MVS
+project" archives alike (``Scene.load``).
 """
 
 from __future__ import annotations
@@ -38,12 +39,6 @@ import os
 import sys
 
 import numpy as np
-
-# subcommands of the JAX package's CLI that wait for an unported module:
-# name -> what is missing
-_UNPORTED = {
-    "view": "the WebGL viewer (viewer_web.py, ROADMAP Queue 1, item 8)",
-}
 
 
 def _add_dataclass_args(ap: argparse.ArgumentParser, cls) -> None:
@@ -243,6 +238,13 @@ def _parser() -> argparse.ArgumentParser:
     _add_device(p)
     _add_dataclass_args(p, TextureOptions)
 
+    p = sub.add_parser("view", help="export an interactive WebGL viewer page")
+    p.add_argument("scene", help=".mvs/.ply/.obj scene")
+    p.add_argument("-m", "--mesh", default="", help="extra mesh ply/obj to show")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--serve", type=int, default=0, help="serve on this port")
+    p.add_argument("--max-points", type=int, default=1_500_000)
+
     p = sub.add_parser("transform", help="transform/align a scene "
                                          "(TransformScene role)")
     p.add_argument("scene")
@@ -334,18 +336,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("inputs", nargs="+",
                    help=".mvs archive, .dmap depth map, or .dimap disparity")
     p.add_argument("-o", "--output",
-                   help=".mvs: write the scene as json (.dmap visualizations "
-                        "are not ported)")
+                   help=".mvs: write the scene as json; .dmap: write "
+                        "depth/normal/confidence visualizations into this folder")
 
-    for name, what in _UNPORTED.items():
-        sub.add_parser(name, help=f"not ported: {what}")
     return ap
 
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    if argv and argv[0] in _UNPORTED:
-        raise NotImplementedError(f"subcommand {argv[0]!r} needs {_UNPORTED[argv[0]]}")
     args = _parser().parse_args(argv)
 
     from openmvs_tpu_torch.config import (DenseOptions, MeshOptions, RefineOptions,
@@ -581,6 +579,19 @@ def main(argv=None):
         mvsio.save(itf, args.output)
         print(f"imported {len(itf.images)} views -> {args.output}")
 
+    elif args.cmd == "view":
+        from openmvs_tpu_torch.viewer_web import export_html, serve
+
+        scene = Scene.load(args.scene)
+        if args.mesh:
+            ms = Scene.load(args.mesh)
+            scene.mesh = ms.mesh
+        out = args.output or (os.path.splitext(args.scene)[0] + "_viewer.html")
+        export_html(scene, out, max_points=args.max_points)
+        print(f"viewer page -> {out}")
+        if args.serve:
+            serve(out, args.serve)
+
     elif args.cmd == "import-openmvg":
         from openmvs_tpu_torch.interfaces.openmvg import import_openmvg
 
@@ -704,10 +715,20 @@ def _dump_files(inputs, output=None):
                   f"{' +normal' if dd.normal is not None else ''}"
                   f"{' +conf' if dd.conf is not None else ''}")
             if output:
-                raise NotImplementedError(
-                    "dump -o for a .dmap writes OpenCV colour-map images, which "
-                    "are not ported (the verbose depth-map dumps, ROADMAP Queue 1, "
-                    "item 5)")
+                from openmvs_tpu_torch.utils import log as _log
+
+                os.makedirs(output, exist_ok=True)
+                vid = int(dd.view_ids[0]) if len(dd.view_ids) else 0
+                old = os.environ.get("OMVS_VERBOSE")
+                os.environ["OMVS_VERBOSE"] = "3"
+                try:
+                    _log.dump_depth_artifacts(output, vid, d, dd.normal, dd.conf)
+                finally:
+                    if old is None:
+                        os.environ.pop("OMVS_VERBOSE", None)
+                    else:
+                        os.environ["OMVS_VERBOSE"] = old
+                print(f"visualizations -> {output}")
         else:
             print(f"{path}: unsupported extension {ext}")
 

@@ -60,6 +60,18 @@
 // before), and the reciprocal is selected, not branched around. No tensor
 // cores: the work is gathers and fp32 arithmetic.
 //
+// Band skipping (OMVS_ACTIVE, the port of the JAX package's tile_act
+// flags, openmvs_tpu/ops/pm_kernel.py:117-170, :534-605): an optional array
+// band_act of ceil(H / 16) bytes flags each band of 16 image rows (the JAX
+// package's 8-row tile of the row-pair compacted lattice) active (non-zero)
+// or skipped. A skipped pixel's raw score is th_robust in every view and its
+// geometric term 0: it runs no texel loop and no geometric term, only
+// finish_view and the min-mean. A block whose pixels all lie in skipped
+// bands also stages no weights, so it reads no image, no texel weight and
+// no neighbour depth map. The flags are a template argument (BANDS) as
+// well: a null band_act launches the instantiation without them, the
+// unflagged kernel as it was.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // into a shared library with a plain C interface, loaded through ctypes
 // (ops/_build.py).
@@ -73,6 +85,7 @@ namespace {
 enum { GEOM_NONE = 0, GEOM_FUSED = 1, GEOM_PRE = 2 };
 
 constexpr int THREADS = 256;
+constexpr int BAND_ROWS = 16;
 constexpr size_t MAX_SMEM = 227 * 1024;
 constexpr int VC_FLOATS = sizeof(pm::ViewConsts) / sizeof(float);
 
@@ -129,7 +142,15 @@ size_t smem_bytes(int V, int T, int P, int threads) {
                           (size_t)T * threads + 3 * T + (size_t)V * VC_FLOATS);
 }
 
-template <bool NEAREST, int GEOM>
+// whether every band of the block's pixels p0..last is skipped
+__device__ __forceinline__ bool block_skipped(const unsigned char* band_act, int p0,
+                                              int last, int W) {
+  for (int b = (p0 / W) / BAND_ROWS; b <= (last / W) / BAND_ROWS; ++b)
+    if (band_act[b]) return false;
+  return true;
+}
+
+template <bool NEAREST, int GEOM, bool BANDS>
 __global__ void __launch_bounds__(THREADS)
 pm_score_views(const float* __restrict__ img, int Hp, int Wp,
                const float* __restrict__ size, const float* __restrict__ Hl,
@@ -144,7 +165,8 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
                int T, const float* __restrict__ w, const float* __restrict__ wtm,
                const float* __restrict__ sum_w, const float* __restrict__ norm_sq0,
                float* __restrict__ out, int V, int C, int H, int W, int P,
-               float th_robust, float geom_weight) {
+               float th_robust, float geom_weight,
+               const unsigned char* __restrict__ band_act) {
   extern __shared__ float4 smem4[];
   float4* s_sg = smem4;                                    // (V, T): Hl_j @ goff_k
   float2* s_wt = reinterpret_cast<float2*>(s_sg + T * V);  // (T, P): (w, wtm)
@@ -157,8 +179,13 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
   const int HW = H * W;
   const int p0 = blockIdx.x * P;
 
+  // a block wholly in skipped bands (a test uniform over the block) stages
+  // no weights
+  const bool block_off =
+      BANDS && block_skipped(band_act, p0, min(p0 + P, HW) - 1, W);
+
   // the tile's weights, read from device memory once per launch
-  for (int idx = tid; idx < T * P; idx += nt) {
+  for (int idx = block_off ? T * P : tid; idx < T * P; idx += nt) {
     const int k = idx / P;
     const int q = p0 + idx % P;
     const bool ok = q < HW;
@@ -195,6 +222,10 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
   const int G = nt / P;
   const int p = p0 + pl;
   if (p >= HW) return;
+  // a skipped pixel runs no texel loop and no geometric term: every view's
+  // raw score is th_robust and its geometric term 0
+  const bool act = !BANDS || band_act[(p / W) / BAND_ROWS];
+  const int Tk = act ? T : 0;   // the texels this pixel scores
 
   const float xa = X0[3 * p], xb = X0[3 * p + 1], xc = X0[3 * p + 2];
   const float sw = sum_w[p], nsq0 = norm_sq0[p];
@@ -215,7 +246,7 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
     const float dl = delta[i];
     const float inv_d = 1.f / d;
     // the view-independent part of each texel's warp
-    for (int k = 0; k < T; ++k) {
+    for (int k = 0; k < Tk; ++k) {
       const float n_goff = __fmaf_rn(nz, s_goff[3 * k + 2],
                                      __fmaf_rn(ny, s_goff[3 * k + 1], nx * s_goff[3 * k]));
       my_scale[k * nt] = __fmaf_rn(n_goff, ind, inv_d);
@@ -239,7 +270,7 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
       // is taken unconditionally and selected, which rounds the same
       float num = 0.f, ssum = 0.f, ssq = 0.f;
       bool inb = true;
-      for (int k = 0; k < T; ++k) {
+      for (int k = 0; k < Tk; ++k) {
         const float scale = my_scale[k * nt];
         const float4 g = sg[k];
         const float sx = __fmaf_rn(hm0, scale, sx0 + g.x);
@@ -257,7 +288,8 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
         ssum = __fmaf_rn(val, wt.x, ssum);
         ssq = __fmaf_rn(val * val, wt.x, ssq);
       }
-      const float s = pm::zncc_score(num, ssum, ssq, sw, nsq0, inb, th_robust);
+      const float s = act ? pm::zncc_score(num, ssum, ssq, sw, nsq0, inb, th_robust)
+                          : th_robust;
 
       // finish_view
       float sv;
@@ -267,10 +299,11 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
         float g;
         if (GEOM == GEOM_FUSED) {
           // packed data has Tl == Hl and Tm == Hm, as for K2
-          g = pm::geom_cons(hl, cv.hm, cv.tr, cv.tn, h_j, w_j,
-                            dm + (size_t)j * Hd * Wd, Hd, Wd, d, xa, xb, xc, u, v);
+          g = act ? pm::geom_cons(hl, cv.hm, cv.tr, cv.tn, h_j, w_j,
+                                  dm + (size_t)j * Hd * Wd, Hd, Wd, d, xa, xb, xc, u, v)
+                  : 0.f;
         } else {
-          g = gterm[((size_t)j * C + c) * HW + p];
+          g = act ? gterm[((size_t)j * C + c) * HW + p] : 0.f;
         }
         sv = fma_f64(s, bon, geom_weight * g);
       }
@@ -293,17 +326,17 @@ pm_score_views(const float* __restrict__ img, int Hp, int Wp,
       const float *f_blend, const float *d0, const float *goff, int T,         \
       const float *w, const float *wtm, const float *sum_w,                    \
       const float *norm_sq0, float *out, int V, int C, int H, int W, int P,    \
-      float th_robust, float geom_weight
+      float th_robust, float geom_weight, const unsigned char *band_act
 #define MV_ARGS                                                                \
   img, Hp, Wp, size, Hl, Hm, Tr, Tn, dm, Hd, Wd, gterm, depth, normal, inv_nd, \
       bonus, delta, X0, uv, f_blend, d0, goff, T, w, wtm, sum_w, norm_sq0,     \
-      out, V, C, H, W, P, th_robust, geom_weight
+      out, V, C, H, W, P, th_robust, geom_weight, band_act
 
 constexpr int MAX_DEVICES = 64;
 
-template <bool NEAREST, int GEOM>
+template <bool NEAREST, int GEOM, bool BANDS>
 cudaError_t launch(MV_PARAMS, int threads, size_t bytes, cudaStream_t s) {
-  auto kern = pm_score_views<NEAREST, GEOM>;
+  auto kern = pm_score_views<NEAREST, GEOM, BANDS>;
   // raise the dynamic shared-memory limit once per device and size, so a
   // launch captured into a CUDA graph makes no attribute call
   static size_t limit[MAX_DEVICES] = {};
@@ -321,6 +354,19 @@ cudaError_t launch(MV_PARAMS, int threads, size_t bytes, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <bool BANDS>
+cudaError_t dispatch(MV_PARAMS, int nearest, int geom, int threads, size_t bytes,
+                     cudaStream_t s) {
+  if (nearest) {
+    if (geom == GEOM_FUSED) return launch<true, GEOM_FUSED, BANDS>(MV_ARGS, threads, bytes, s);
+    if (geom == GEOM_PRE) return launch<true, GEOM_PRE, BANDS>(MV_ARGS, threads, bytes, s);
+    return launch<true, GEOM_NONE, BANDS>(MV_ARGS, threads, bytes, s);
+  }
+  if (geom == GEOM_FUSED) return launch<false, GEOM_FUSED, BANDS>(MV_ARGS, threads, bytes, s);
+  if (geom == GEOM_PRE) return launch<false, GEOM_PRE, BANDS>(MV_ARGS, threads, bytes, s);
+  return launch<false, GEOM_NONE, BANDS>(MV_ARGS, threads, bytes, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -333,8 +379,9 @@ int pm_views_max_views() { return MAX_VIEWS; }
 // (V, 3), dm (V, Hd, Wd) and uv (H, W, 2); geom 2 (precomputed) gterm
 // (V, C, H, W). The candidate maps depth, inv_nd, bonus, delta are
 // (C, H, W), normal (C, H, W, 3); X0 (H, W, 3), f_blend, d0, sum_w and
-// norm_sq0 (H, W); goff (T, 3), w and wtm (T, H, W). Unused pointers may be
-// null. Returns the CUDA error of the launch (0 = success); does not
+// norm_sq0 (H, W); goff (T, 3), w and wtm (T, H, W); band_act, if not null,
+// ceil(H / 16) bytes, 0 for a skipped band of 16 rows. Unused pointers may
+// be null. Returns the CUDA error of the launch (0 = success); does not
 // synchronise.
 int pm_score_views_launch(const float* img, int Hp, int Wp, const float* size,
                           const float* Hl, const float* Hm, const float* Tr,
@@ -348,7 +395,8 @@ int pm_score_views_launch(const float* img, int Hp, int Wp, const float* size,
                           const float* wtm, const float* sum_w,
                           const float* norm_sq0, float* out, int V, int C,
                           int H, int W, float th_robust, float geom_weight,
-                          int nearest, int geom, void* stream) {
+                          int nearest, int geom, const unsigned char* band_act,
+                          void* stream) {
   if (T < 1 || T > MAX_TEXELS || V < 1 || V > MAX_VIEWS || geom < 0 || geom > 2 ||
       (long long)Hp * Wp >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -362,16 +410,9 @@ int pm_score_views_launch(const float* img, int Hp, int Wp, const float* size,
   const size_t bytes = smem_bytes(V, T, P, threads);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (nearest) {
-    if (geom == GEOM_FUSED) e = launch<true, GEOM_FUSED>(MV_ARGS, threads, bytes, s);
-    else if (geom == GEOM_PRE) e = launch<true, GEOM_PRE>(MV_ARGS, threads, bytes, s);
-    else e = launch<true, GEOM_NONE>(MV_ARGS, threads, bytes, s);
-  } else {
-    if (geom == GEOM_FUSED) e = launch<false, GEOM_FUSED>(MV_ARGS, threads, bytes, s);
-    else if (geom == GEOM_PRE) e = launch<false, GEOM_PRE>(MV_ARGS, threads, bytes, s);
-    else e = launch<false, GEOM_NONE>(MV_ARGS, threads, bytes, s);
-  }
+  const cudaError_t e =
+      band_act ? dispatch<true>(MV_ARGS, nearest, geom, threads, bytes, s)
+               : dispatch<false>(MV_ARGS, nearest, geom, threads, bytes, s);
   return (int)e;
 }
 

@@ -117,8 +117,8 @@ def init_undistort_map(K: np.ndarray, dist: np.ndarray, width: int, height: int,
     reciprocal of the determinant, ``io/images._invert3``); 32u and 32v
     rounded half to even to int32 (cvRound gives
     INT_MIN outside that range), map1 = (iu >> 5, iv >> 5) saturated to
-    int16. (Only coefficients that send a pixel 2^20 pixels away tell this
-    from OpenCV's scalar tail, which wraps instead.)"""
+    int16 in the blocks (``v_pack``) and wrapped to int16 in the scalar
+    tail's last width % 8 columns (a cast to short)."""
     K = np.asarray(K, np.float64)
     d = np.zeros(5)
     coef = np.asarray(dist, np.float64).reshape(-1)[:5]
@@ -174,8 +174,9 @@ def init_undistort_map(K: np.ndarray, dist: np.ndarray, width: int, height: int,
             return np.where(ok, r, -2.0 ** 31).astype(np.int64)
 
         iu, iv = fixed(u), fixed(v)
-    map1 = np.clip(np.stack([iu >> _INTER_BITS, iv >> _INTER_BITS], -1),
-                   -32768, 32767).astype(np.int16)
+    m = np.stack([iu >> _INTER_BITS, iv >> _INTER_BITS], -1)
+    map1 = np.clip(m, -32768, 32767).astype(np.int16)    # the blocks saturate
+    map1[:, nfull:] = m[:, nfull:].astype(np.int16)      # the tail wraps
     map2 = ((iv & (_INTER_TAB - 1)) * _INTER_TAB + (iu & (_INTER_TAB - 1))).astype(np.uint16)
     return map1, map2
 

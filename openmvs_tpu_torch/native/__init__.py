@@ -1,15 +1,17 @@
 """Host-side native code (C++ via ctypes): the graph cut over the Delaunay
-tetrahedralization, quadric edge-collapse decimation and the z-buffer
-rasterizer.
+tetrahedralization, quadric edge-collapse decimation, the z-buffer
+rasterizer and the golden "MVS project" emitter.
 
 Copies of the JAX package's ``openmvs_tpu/native/src/`` (``maxflow.h``,
-``maxflow.cpp``, ``delaunay_cut.cpp``, ``decimate.cpp``, ``rasterize.cpp``),
+``maxflow.cpp``, ``delaunay_cut.cpp``, ``decimate.cpp``, ``rasterize.cpp``,
+``project_emitter.cpp``),
 built with the same ``g++`` flags (``openmvs_tpu/native/__init__.py``) into
 one library, so both libraries compile the same arithmetic on one machine
 and agree to the bit. It is host code, as in the JAX package: meshing runs
 the visibility ray walk and the s-t min-cut (``reconstruct``), cleaning
 decimates (``mesh_ops``), refinement and texturing rasterize the mesh into
-each view on the CPU.
+each view on the CPU; ``emit_test_project`` writes an archive by an
+encoder independent of ``io/boost_archive.py``, to hold that codec against.
 
 The library is built on the first call (never at import) into
 ``openmvs_tpu_torch/_build/native/<tag>/``; the tag hashes the sources, the
@@ -35,7 +37,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("maxflow.cpp", "delaunay_cut.cpp", "decimate.cpp", "rasterize.cpp")
+SOURCES = ("maxflow.cpp", "delaunay_cut.cpp", "decimate.cpp", "rasterize.cpp",
+           "project_emitter.cpp")
 HEADERS = ("maxflow.h",)
 BUILD_DIR = _PKG / "_build" / "native"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-fopenmp"]
@@ -114,8 +117,19 @@ def _load() -> ctypes.CDLL:
                 np.ctypeslib.ndpointer(np.int64, shape=(1,)),
                 np.ctypeslib.ndpointer(np.int64, shape=(1,)),
             ]
+            lib.omvs_emit_test_project.restype = ctypes.c_int
+            lib.omvs_emit_test_project.argtypes = [ctypes.c_char_p]
             _lib = lib
     return _lib
+
+
+def emit_test_project(path: str) -> None:
+    """Write the tiny golden 'MVS project' archive used to cross-validate
+    io/boost_archive.py against an independent C++ emitter of the wire
+    format (native/src/project_emitter.cpp)."""
+    rc = _load().omvs_emit_test_project(path.encode())
+    if rc != 0:
+        raise RuntimeError(f"omvs_emit_test_project failed (rc={rc})")
 
 
 def delaunay_graph_cut(

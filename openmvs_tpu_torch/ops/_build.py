@@ -69,6 +69,7 @@ SIGNATURES = {
             P,                  # out
             I, I, I, I,         # V, C, H, W
             F, F, I, I,         # th_robust, geom_weight, nearest, geom
+            P,                  # band_act (ceil(H / 16) bytes) or null
             P,                  # stream
         ],
         "pm_views_max_views": [],

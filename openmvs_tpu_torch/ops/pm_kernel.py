@@ -32,10 +32,17 @@ where the two differ: nearest sampling rounds both axes half-to-even,
 equals K1 bit for bit: its window changes where a sample is read from,
 never its value.
 
+``score_views`` takes optional band flags (``band_act``, one per band of
+``BAND_ROWS`` image rows; the JAX package's ``tile_act``): a skipped
+band's pixels score th_robust in every view with a geometric term of 0,
+and the kernel does no texel work for them (``OMVS_ACTIVE``, the sweep's
+convergence skipping).
+
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; each launch adds one to its entry of
 ``LAUNCHES`` (one per kernel and sampling mode, and for ``score_views`` per
-geometric mode: none, ``geom`` fused, ``pre`` precomputed).
+geometric mode: none, ``geom`` fused, ``pre`` precomputed; launches with
+band flags count under ``score_views_act*``).
 """
 
 from __future__ import annotations
@@ -52,12 +59,18 @@ from openmvs_tpu_torch.utils.fmath import fma, rsqrt
 LAUNCHES = {"score_views_exact": 0, "score_views_nn": 0,
             "score_views_geom_exact": 0, "score_views_geom_nn": 0,
             "score_views_pre_exact": 0, "score_views_pre_nn": 0,
+            "score_views_act_exact": 0, "score_views_act_nn": 0,
+            "score_views_geom_act_exact": 0, "score_views_geom_act_nn": 0,
+            "score_views_pre_act_exact": 0, "score_views_pre_act_nn": 0,
             "score_view_exact": 0, "score_view_nn": 0,
             "score_view_geom_exact": 0, "score_view_geom_nn": 0,
             "geom_term": 0, "geom_terms": 0,
             "score_view_v2_exact": 0, "score_view_v2_nn": 0}
 # score_views' geometric modes, as the kernel numbers them
 _GEOM_MODES = {"none": 0, "geom": 1, "pre": 2}
+# image rows of one band of the scorer's band flags: the JAX package's
+# 8-row tile of the row-pair compacted lattice
+BAND_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -149,14 +162,25 @@ def score_view_plain(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w,
         num = fma(val, wtm[k][None], num)
         ssum = fma(val, w[k][None], ssum)
         ssq = fma(val * val, w[k][None], ssq)
-    # XLA turns the division by the broadcast sum_w into a reciprocal
-    # multiply, which then contracts with the subtraction
-    norm_sq1 = fma(-(ssum * ssum), (1.0 / sum_w)[None], ssq)
+    return zncc_score(num, ssum, ssq, inb, sum_w, norm_sq0, th_robust), inb
+
+
+def zncc_score(num, ssum, ssq, inb, sum_w, norm_sq0, th_robust: float,
+               reciprocal: bool = True) -> torch.Tensor:
+    """1 - the weighted ZNCC from a window's sums, th_robust where the
+    window left the image or has no variance. ``reciprocal``: the
+    division by sum_w as XLA rounds it in the texel-scan scorer, else as
+    in the warp-once scorer (a true division, no contraction)."""
+    if reciprocal:
+        # XLA turns the division by the broadcast sum_w into a reciprocal
+        # multiply, which then contracts with the subtraction
+        norm_sq1 = fma(-(ssum * ssum), (1.0 / sum_w)[None], ssq)
+    else:
+        norm_sq1 = ssq - ssum * ssum / sum_w[None]
     nrm_sq = norm_sq0[None] * norm_sq1
     ncc = torch.clamp(num * rsqrt(torch.clamp(nrm_sq, min=1e-30)), -1.0, 1.0)
     score = 1.0 - ncc
-    score = torch.where((nrm_sq <= 1e-16) | ~inb, th_robust, score)
-    return score, inb
+    return torch.where((nrm_sq <= 1e-16) | ~inb, th_robust, score)
 
 
 def geom_term_plain(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
@@ -226,21 +250,38 @@ def finish_views(per_view, n_views, sizes, bonus, f_blend, delta, d0, *,
     return torch.where(s1 < th_robust, 0.5 * (s0 + s1), s0)
 
 
+def band_rows(band_act: torch.Tensor, H: int) -> torch.Tensor:
+    """(H,) bool: the rows of active bands."""
+    return torch.repeat_interleave(band_act, BAND_ROWS)[:H]
+
+
 def score_views_plain(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff,
                       w, wtm, sum_w, norm_sq0, bonus, f_blend, delta, d0, *,
                       th_robust: float, geom_weight: float,
                       nearest: bool = False, Tr=None, Tn=None, dms=None,
-                      uv=None, geom_terms=None) -> torch.Tensor:
+                      uv=None, geom_terms=None, band_act=None) -> torch.Tensor:
     """The plain version of ``score_views``: per view, K1's and K2's plain
-    versions (or the precomputed term), then ``finish_views``."""
+    versions (or the precomputed term), then ``finish_views``. With
+    ``band_act``, the pixels of skipped bands take raw score th_robust and
+    geometric term 0 in every view."""
+    if band_act is None:
+        def skip(s, g):
+            return s, g
+    else:
+        off = ~band_rows(band_act, depth.shape[1])[None, :, None]
+
+        def skip(s, g):
+            return (torch.where(off, th_robust, s),
+                    None if g is None else torch.where(off, 0.0, g))
+
     def per_view(j):
         s = score_view_plain(images[j], sizes[j], Hl[j], Hm[j], depth, normal,
                              inv_nd, X0, goff, w, wtm, sum_w, norm_sq0,
                              th_robust=th_robust, nearest=nearest)[0]
         if dms is not None:
-            return s, geom_term_plain(dms[j], sizes[j], Hl[j], Hm[j], Tr[j],
-                                      Tn[j], depth, X0, uv)
-        return s, None if geom_terms is None else geom_terms[j]
+            return skip(s, geom_term_plain(dms[j], sizes[j], Hl[j], Hm[j], Tr[j],
+                                           Tn[j], depth, X0, uv))
+        return skip(s, None if geom_terms is None else geom_terms[j])
 
     return finish_views(per_view, images.shape[0], sizes, bonus, f_blend,
                         delta, d0, th_robust=th_robust, geom_weight=geom_weight)
@@ -565,7 +606,8 @@ def geom_terms(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
 def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
                 sum_w, norm_sq0, bonus, f_blend, delta, d0, *, th_robust: float,
                 geom_weight: float, nearest: bool = False, Tr=None, Tn=None,
-                dms=None, uv=None, geom_terms=None) -> torch.Tensor:
+                dms=None, uv=None, geom_terms=None,
+                band_act=None) -> torch.Tensor:
     """(C, H, W) scores of C candidate (depth, normal) maps aggregated over
     the V views of the stacks (K1-mv; K2-mv with the fused geometric term):
     what ``score_hypotheses`` returns, from one launch.
@@ -577,14 +619,23 @@ def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
     computed in the kernel when ``Tr`` (V, 3, 3), ``Tn`` (V, 3), ``dms``
     (V, Hd, Wd) and ``uv`` are given (with ``Hl``/``Hm`` as its forward
     transform, as K2), read from ``geom_terms`` (V, C, H, W) when that is
-    given, and left out otherwise."""
+    given, and left out otherwise.
+
+    ``band_act`` (ceil(H / BAND_ROWS),) bool flags the bands of
+    ``BAND_ROWS`` rows to score; a skipped band's pixels take raw score
+    th_robust and geometric term 0 in every view, and the kernel reads no
+    image or texel weight for them. None scores every band."""
     args = (images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
             sum_w, norm_sq0, bonus, f_blend, delta, d0)
     geom = dict(Tr=Tr, Tn=Tn, dms=dms, uv=uv, geom_terms=geom_terms)
     mode = check_views_operands(*args, **geom)
+    if band_act is not None:
+        _check("band_act", band_act, (-(-depth.shape[1] // BAND_ROWS),),
+               depth.device, torch.bool)
     if depth.device.type == "cpu":
         return score_views_plain(*args, th_robust=th_robust,
-                                 geom_weight=geom_weight, nearest=nearest, **geom)
+                                 geom_weight=geom_weight, nearest=nearest,
+                                 band_act=band_act, **geom)
     dev = _cuda_device(depth)
     C, H, W = depth.shape
     V, Hp, Wp = images.shape
@@ -605,8 +656,9 @@ def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
             goff.shape[0], _ptr(w), _ptr(wtm), _ptr(sum_w), _ptr(norm_sq0),
             _ptr(out), V, C, H, W, ctypes.c_float(th_robust),
             ctypes.c_float(geom_weight), int(nearest), _GEOM_MODES[mode],
+            ptr(band_act),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_score_views_launch")
-    infix = "" if mode == "none" else f"_{mode}"
+    infix = ("" if mode == "none" else f"_{mode}") + ("" if band_act is None else "_act")
     LAUNCHES[f"score_views{infix}_{'nn' if nearest else 'exact'}"] += 1
     return out

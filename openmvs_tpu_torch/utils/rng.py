@@ -9,14 +9,20 @@ so there is nothing to gain from device code and the values stay exact.
 ``block_uniform`` (counterpart of ``openmvs_tpu/ops/patchmatch.py:687-720``)
 runs in torch. torch has no usable uint32 arithmetic, so words are int64
 masked to 32 bits, and multiplies by 32-bit constants are split into 16-bit
-halves so no product leaves int64.
+halves so no product leaves int64. Under ``OMVS_OLD_RNG`` (read at call
+time) it draws shape-based uniforms instead, one per block of the array,
+as ``jax.random.uniform`` does (``uniform``: threefry2x32 over the
+counters, in torch).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
+
+from openmvs_tpu_torch.utils.fmath import fma
 
 Key = Tuple[int, int]
 
@@ -68,6 +74,44 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32_t(key: Key, x0: torch.Tensor, x1: torch.Tensor):
+    """``threefry2x32`` over int64 tensors of 32-bit counters."""
+    k0, k1 = key[0] & _M32, key[1] & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` under
+    partitionable threefry: element i's bits are the xor of the block of
+    counter (0, i), their 23 high bits the mantissa of a float in [1, 2),
+    then (f - 1) (maxval - minval) + minval with the fused multiply-add of
+    XLA's CPU code, at least minval."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32_t(key, torch.zeros_like(idx), idx)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = torch.tensor(maxval, dtype=torch.float32) - lo
+    return torch.clamp(fma(f, float(span), float(lo)), min=float(lo)).reshape(shape)
+
+
 BLOCK = 8
 
 
@@ -76,7 +120,14 @@ def block_uniform(key: Key, uv: torch.Tensor, minval: float = 0.0,
     """Per-BLOCKxBLOCK-tile uniforms hashed from (key, global block coords).
 
     uv: (H, W, 2) float pixel coordinates. Bit-identical to the JAX
-    package's ``_block_uniform``."""
+    package's ``_block_uniform``. Under ``OMVS_OLD_RNG`` the uniforms are
+    instead one ``uniform`` draw of shape (ceil(H / 8), ceil(W / 8)), each
+    repeated over its block (the JAX package's diagnostic)."""
+    if os.environ.get("OMVS_OLD_RNG"):
+        H, W = uv.shape[:2]
+        u = uniform(key, (-(-H // BLOCK), -(-W // BLOCK)), minval, maxval, uv.device)
+        u = torch.repeat_interleave(torch.repeat_interleave(u, BLOCK, 0), BLOCK, 1)
+        return u[:H, :W]
     bx = torch.div(uv[..., 0].to(torch.int64), BLOCK, rounding_mode="floor")
     by = torch.div(uv[..., 1].to(torch.int64), BLOCK, rounding_mode="floor")
     h = (key[0] ^ _mul32(bx & _M32, 0x85EBCA6B)

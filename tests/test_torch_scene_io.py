@@ -11,8 +11,8 @@
   ``point_cloud_filter`` equal the JAX package's.
 - ``init_tower_scene`` in modes 1-4 (and forced) on the tower fixture of
   tests/test_tower.py and on a scene that is no tower.
-- ``dense_options_from_sml`` equals the JAX package's; a boost "MVS
-  project" archive raises instead of being misread.
+- ``dense_options_from_sml`` equals the JAX package's; a malformed boost
+  "MVS project" archive raises in both packages instead of being misread.
 """
 
 import os
@@ -169,9 +169,17 @@ def test_geometry_imports_equal_jax(tmp_path):
 
 
 def test_boost_project_archive_raises(tmp_path):
+    """A boost project archive is read as one since the port has the codec
+    (tests/test_torch_boost_archive.py): a malformed one (version 0)
+    raises UnsupportedArchive in both packages instead of being misread."""
+    from openmvs_tpu.io import boost_archive as jbar
+    from openmvs_tpu_torch.io import boost_archive as pbar
+
     (tmp_path / "p.mvs").write_bytes(b"MVS\x00" + bytes(32))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(pbar.UnsupportedArchive, match="version 0"):
         pscene_mod.Scene.load(str(tmp_path / "p.mvs"))
+    with pytest.raises(jbar.UnsupportedArchive, match="version 0"):
+        jscene_mod.Scene.load(str(tmp_path / "p.mvs"))
 
 
 def _ring_scene():

@@ -254,3 +254,24 @@ def test_undistort_interface_images_equal_jax(tmp_path, ext):
             else:
                 with open(a, "rb") as f, open(b, "rb") as g:
                     assert f.read() == g.read()
+
+
+def test_tail_columns_wrap_as_opencv():
+    """OpenCV's map loop packs the 8-column blocks with saturation and
+    casts the scalar tail (the last width % 8 columns) to short, which
+    wraps. These coefficients send the tail's pixels more than 2^20 px
+    away, so map1 there wraps; the port's map and its undistorted image
+    equal cv2's and the JAX package's byte for byte."""
+    W, H = 45, 31
+    K = np.array([[40.0, 0, 22.3], [0, 40.0, 15.6], [0, 0, 1.0]])
+    d = np.array([5.0e5, 0, 0, 0, 0])
+    m1, m2 = und.init_undistort_map(K, d, W, H)
+    c1, c2 = cv2.initUndistortRectifyMap(K, d, None, K, (W, H), cv2.CV_16SC2)
+    u = K[0, 2] + np.abs(((np.arange(W) - K[0, 2]) / K[0, 0]) ** 3 * d[0] * K[0, 0])
+    assert u[W - W % 8:].min() > 2 ** 20            # the tail lies that far out
+    assert (np.abs(c1[:, W - W % 8:].astype(np.int64)) < 32767).any()   # and wraps
+    assert np.array_equal(m1, c1) and np.array_equal(m2, c2)
+    img = _image(np.uint8, 3, W, H, 9)
+    out = und.undistort_image(img, K, d)
+    assert np.array_equal(out, jund.undistort_image(img, K, d))
+    assert np.array_equal(out, cv2.undistort(img, K, d))
