@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PatchMatch densify, mesh refinement, mesh
-texturing and SGM densify paths, the whole chain densify -> mesh -> clean
--> refine -> texture -> save, the same chain from files through the
-port's CLI, a distorted SfM model imported, undistorted, densified,
+"""Drive the PyTorch port's PatchMatch densify (serial and sharded), mesh
+refinement, mesh texturing and SGM densify paths, the whole chain densify
+-> mesh -> clean -> refine -> texture -> save, the same chain from files
+through the port's CLI, a distorted SfM model imported, undistorted, densified,
 evaluated, transformed and split, the reference's project archives, and
 densify's remaining modes and switches with the dumps and viewers, on one
 NVIDIA GPU.
@@ -39,6 +39,24 @@ Phases, each printing one JSON line:
                   K1/K2), and depth accuracy/completeness per view against
                   ground truth, held to 95% of what the JAX package reaches
                   on the same scene; its cloud goes on to phase pipeline
+  5b. multidevice - right after densify, on make_mesh(4) = (2, 2) shards of
+                  the one card: estimate_views_sharded (photometric and 2
+                  geometric passes) against the serial port run with
+                  OMVS_EARLY_EXIT=0, pass by pass (share of equal pixels per
+                  view, at least 0.999; seconds of each; K1-mv exact/nn and
+                  K2-mv launches, K2-mv 3 per tile block, view and pass);
+                  dense_reconstruction(mesh=...) (points within 1% of phase
+                  densify's, quality within its bounds); filter_views_sharded
+                  against the host filter (masks, and depths within 1e-3,
+                  above 0.99) and against itself on the CPU (equal);
+                  _run_views_parallel with two workers on the card against
+                  one (bit for bit, seconds); label_faces_lbp_sharded over
+                  4 shards on phase texture's qualities (labels equal on
+                  0.999, ms); refine's pair axis over 2 shards (one
+                  _energy_grad within rel 1e-5 / rtol 1e-4, the whole
+                  refine_mesh within 1.05x the one-shard height error);
+                  sgm_pairs_sharded and fusion_reduce_sharded against their
+                  serial counterparts (0.999)
   6. profile    - torch.profiler over one view's photometric
                   estimate_depth_map at 480x640: device-busy share, the top
                   10 device kernels by time, launches, host time per sweep
@@ -190,8 +208,8 @@ Phases, each printing one JSON line:
                   OMVS_PROFILE_DIR writing a trace; dump -o of a .dmap of
                   phase project; render_mesh and export_html of phase
                   pipeline's textured mesh
-Each of phases 4, 5, 7, 9, 12, 14, 15, 16 and 17 sets the launch counts to
-0 just before the path it drives and reads them just after. Then the {"kernels": [...]} line
+Each of phases 4, 5, 5b, 7, 9, 12, 14, 15, 16 and 17 sets the launch counts
+to 0 just before the path it drives and reads them just after. Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -1145,7 +1163,7 @@ def phase_densify(card, scene, gts, t_scene):
     if len(pc) == 0:
         raise RuntimeError("empty dense cloud")
     _check_quality(q)
-    return launches, maps, pc
+    return launches, maps, pc, wall
 
 
 def _union_us(intervals):
@@ -1821,7 +1839,7 @@ def phase_texture(card, scene):
     _, rev, valid = texture._rev_slots(adj)
     dev = device_mod.resolve("cuda")
     schedule_ms = cuda_ms(lambda: texture._lbp_schedule(data, adj, lam_k, rev, valid,
-                                                        iters, dev), 5)
+                                                        iters, [dev]), 5)
     prof = _profile_lbp(q, adj, lam, iters)
 
     small = height_field_mesh(150)
@@ -3143,6 +3161,335 @@ def phase_switches(card, scene, gts, textured, dmap_path):
         sweep_launches
 
 
+def _wall_s(fn):
+    """(result, seconds) of ``fn()``, the card synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serial_chain(scene, opts, dev):
+    """The serial port's photometric pass and geometric passes over every
+    view under OMVS_EARLY_EXIT=0, the schedule the sharded path runs:
+    (list of {id: DepthMapResult} per pass, seconds per pass)."""
+    from openmvs_tpu_torch import densify
+
+    saved = os.environ.get("OMVS_EARLY_EXIT")
+    os.environ["OMVS_EARLY_EXIT"] = "0"
+    passes, secs = [], []
+    try:
+        prev = None
+        for gi in range(-1, opts.estimation_geometric_iters):
+            def run():
+                out = {}
+                for i, im in enumerate(scene.images):
+                    if prev is not None and im.meta.id not in prev:
+                        continue
+                    r = densify.estimate_depth_map(
+                        scene, i, opts, prev=None if prev is None else prev[im.meta.id],
+                        neighbor_results=prev, geometric_iter=gi, device=dev)
+                    if r is not None:
+                        out[im.meta.id] = r
+                return out
+            res, s = _wall_s(run)
+            if prev is not None:
+                res = {**prev, **res}
+            passes.append(res)
+            secs.append(s)
+            prev = res
+    finally:
+        if saved is None:
+            os.environ.pop("OMVS_EARLY_EXIT", None)
+        else:
+            os.environ["OMVS_EARLY_EXIT"] = saved
+    return passes, secs
+
+
+def _map_agreement(got, want):
+    """Per view: the share of pixels whose valid mask and depth are equal;
+    mask agreement; depths within 1e-3 relative on pixels valid in both."""
+    import numpy as np
+
+    out = {}
+    for rid, w in want.items():
+        a, b = got[rid].depth, w.depth
+        va, vb = a > 0, b > 0
+        both = va & vb
+        out[rid] = {"equal": float(((va == vb) & ((a == b) | ~vb)).mean()),
+                    "mask": float((va == vb).mean()),
+                    "depth_1e-3": float((np.abs(a - b)[both] < 1e-3 * b[both]).mean())
+                    if both.any() else 1.0}
+    return out
+
+
+def _sgm_batch(P_n, H, W, num_d, d_min):
+    """P_n rectified pairs of about constant disparity 5 (__graft_entry__.py's
+    SGM stage at the given size): (lefts, rights shifted by d_min)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 1, (P_n, H, W + 16)).astype(np.float32)
+    lefts = np.ascontiguousarray(base[:, :, 16:])
+    rights = np.roll(base, 5, axis=2)[:, :, 16:]
+    shifted = np.zeros_like(rights)
+    shifted[:, :, -d_min:] = rights[:, :, :W + d_min]
+    return lefts, shifted
+
+
+def _fusion_serial(X, Nw, nbs, opts):
+    """__graft_entry__.py's numpy reference of the fusion reduction: each
+    neighbour view's agreement and weighted evidence, float64, in turn."""
+    import numpy as np
+
+    from openmvs_tpu_torch.ops.fusion import conf2weight
+
+    sX = np.zeros((len(X), 3))
+    sW = np.zeros(len(X))
+    sA = np.zeros(len(X), np.int64)
+    cosn = np.cos(np.radians(opts.normal_diff_threshold))
+    for n in nbs:
+        hb, wb = n.depth.shape
+        pb = n.camera.project_h(X)
+        zb = pb[:, 2]
+        front = zb > 0
+        ix = np.round(np.where(front, pb[:, 0] / np.where(front, zb, 1), -1)).astype(int)
+        iy = np.round(np.where(front, pb[:, 1] / np.where(front, zb, 1), -1)).astype(int)
+        inside = front & (ix >= 0) & (ix < wb) & (iy >= 0) & (iy < hb)
+        ixc, iyc = np.clip(ix, 0, wb - 1), np.clip(iy, 0, hb - 1)
+        db = n.depth[iyc, ixc].astype(np.float64)
+        similar = inside & (db > 0) & (np.abs(zb - db) < opts.depth_diff_threshold * zb)
+        Nb = n.normal[iyc, ixc] @ n.camera.R
+        agree = similar & (np.einsum("ij,ij->i", Nw, Nb) > cosn)
+        w = np.where(agree, conf2weight(n.conf[iyc, ixc], db, opts.fuse_conf_weight_floor),
+                     0.0)
+        Xb = n.camera.unproject(np.stack([ixc, iyc], -1).astype(np.float64), db)
+        sX += np.where(agree[:, None], Xb * w[:, None], 0.0)
+        sW += w
+        sA += agree
+    return sX, sW, sA
+
+
+def phase_multidevice(card, scene, colored, gts, dense, dense_maps, dense_s):
+    """The multi-device paths on make_mesh(4) = (2, 2) shards of the one
+    card: sharded estimation against the serial port, the sharded
+    dense_reconstruction, the sharded filter against the host filter,
+    dense_reconstruction with two view workers against phase densify's
+    cloud ``dense``, maps ``dense_maps`` and seconds ``dense_s``, the
+    label-sharded LBP, refine's pair axis over 2 shards, SGM pairs and the
+    fusion reduction over 4."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch import densify, refine, texture
+    from openmvs_tpu_torch.config import DenseOptions, RefineOptions, TextureOptions
+    from openmvs_tpu_torch.convert import mesh_from_numpy
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.ops import pm_kernel
+    from openmvs_tpu_torch.parallel import sharded
+    from openmvs_tpu_torch.parallel.sharded_filter import filter_views_sharded
+    from openmvs_tpu_torch.synthetic import depth_quality, height_field_mesh
+    from openmvs_tpu_torch.view_selection import select_views_for_scene
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = sharded.make_mesh(4)
+    n = len(scene.images)
+    opts = DenseOptions()
+    select_views_for_scene(scene, opts)
+    t_phase = time.perf_counter()
+
+    # 1. sharded estimation against the serial port, pass by pass
+    serial, serial_s = _serial_chain(scene, opts, dev)
+    pm_kernel.reset_launches()
+    sh_passes, sh_s = [], []
+    prev = None
+    for gi in range(-1, opts.estimation_geometric_iters):
+        res, s = _wall_s(lambda: sharded.estimate_views_sharded(
+            scene, opts, mesh, prev_results=prev, geometric_iter=gi))
+        if prev is not None:
+            res = {**prev, **res}
+        sh_passes.append(res)
+        sh_s.append(s)
+        prev = res
+    launches = {k: v for k, v in pm_kernel.LAUNCHES.items() if v}
+    agree = [_map_agreement(a, b) for a, b in zip(sh_passes, serial)]
+    estimate = {"mesh": list(mesh.shape), "passes": ["photometric"] + [
+                    f"geometric {g}" for g in range(opts.estimation_geometric_iters)],
+                "sharded_s": sh_s, "serial_s": serial_s,
+                "sharded_over_serial": sum(sh_s) / sum(serial_s),
+                "equal_share": [[v["equal"] for v in a.values()] for a in agree],
+                "mask_agreement": [[v["mask"] for v in a.values()] for a in agree],
+                "launches": launches}
+    emit({"phase": "multidevice", "check": "estimate_views_sharded", **estimate,
+          "card": card})
+    worst = min(min(x) for x in estimate["equal_share"])
+    if worst < 0.999:
+        raise RuntimeError(f"sharded maps equal the serial ones on only {worst} of a view")
+    n_tile = mesh.shape[1]
+    k2 = launches.get("score_views_geom_exact", 0)
+    if not all(launches.get(k) for k in MAIN_PATH):
+        raise RuntimeError(f"a scorer kernel was not launched on the sharded path: "
+                           f"{launches}")
+    if k2 != 3 * n_tile * n * opts.estimation_geometric_iters:
+        raise RuntimeError(f"K2-mv launches {k2}: expected 3 per tile block, view "
+                           "and geometric pass")
+
+    # 2. dense_reconstruction on the mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        pm_kernel.reset_launches()
+        pc, wall = _wall_s(lambda: densify.dense_reconstruction(
+            scene, opts, save_dmaps_to=tmp, device=dev, mesh=mesh))
+        maps = _dmaps(tmp, n)
+    q = [depth_quality(maps[i], gts[i]) for i in range(n)]
+    rec = {"check": "dense_reconstruction", "wall_s": wall, "points": len(pc),
+           "phase_densify_points": len(dense),
+           "points_ratio": len(pc) / len(dense),
+           "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
+           "launches": {k: v for k, v in pm_kernel.LAUNCHES.items() if v}}
+    emit({"phase": "multidevice", **rec, "card": card})
+    if abs(len(pc) - len(dense)) > 0.01 * len(dense):
+        raise RuntimeError(f"sharded densify: {len(pc)} points, phase densify {len(dense)}")
+    _check_quality(q)
+
+    # 3. the sharded filter against the host filter (the JAX package's bar,
+    # __graft_entry__.py:161-165) and against itself on the CPU (which the
+    # tests hold to the JAX package's bit for bit), on the same maps. Its
+    # float32 projection of these axis-aligned cameras puts an integer
+    # source row just below the row about half the time (the host's float64
+    # lands on it), which moves a depth by more than 1e-3 only where
+    # neighbouring depths differ much: at 120x160 on 2-4% of pixels
+    # (tests/_torch_filter_floor.py), at 640x480 on less than 1%.
+    final = sh_passes[-1]
+    f_sh, f_sh_s = _wall_s(lambda: filter_views_sharded(final, opts, mesh))
+    t0 = time.perf_counter()
+    f_host = densify._filter_views(final, set(), opts)
+    f_host_s = time.perf_counter() - t0
+    f_cpu = filter_views_sharded(final, opts, sharded.make_mesh(4, devices=["cpu"] * 4))
+    fa = _map_agreement(f_sh, f_host)
+    cpu_eq = [float(((f_sh[k].depth == f_cpu[k].depth) & (f_sh[k].conf == f_cpu[k].conf)).mean())
+              for k in f_cpu]
+    emit({"phase": "multidevice", "check": "filter_views_sharded", "sharded_s": f_sh_s,
+          "host_s": f_host_s, "mask_agreement": [v["mask"] for v in fa.values()],
+          "depth_1e-3": [v["depth_1e-3"] for v in fa.values()],
+          "equal_to_cpu_sharded": cpu_eq, "card": card})
+    worst = min(min(v["mask"], v["depth_1e-3"]) for v in fa.values())
+    if worst <= 0.99 or min(cpu_eq) < 0.999:
+        raise RuntimeError(f"sharded filter: against the host filter {fa}, equal to "
+                           f"the CPU's on {cpu_eq}")
+
+    # 4. dense_reconstruction with two view workers sharing the card (one
+    # thread and stream each, _run_views_parallel) against phase densify's
+    with tempfile.TemporaryDirectory() as tmp:
+        pc2, two_s = _wall_s(lambda: densify.dense_reconstruction(
+            scene, opts, save_dmaps_to=tmp, device=dev, devices=[dev, dev]))
+        maps2 = _dmaps(tmp, n)
+    same_maps = [bool(np.array_equal(a, b)) for a, b in zip(maps2, dense_maps)]
+    same_points = bool(np.array_equal(pc2.points, dense.points))
+    emit({"phase": "multidevice", "check": "dense_reconstruction(devices=2)",
+          "one_device_s": dense_s, "two_workers_s": two_s, "ratio": two_s / dense_s,
+          "points": len(pc2), "maps_bit_equal": same_maps, "points_bit_equal": same_points,
+          "card": card})
+    if not (all(same_maps) and same_points):
+        raise RuntimeError("two view workers gave other maps or points than phase densify")
+
+    # 5. label-sharded LBP on phase texture's qualities
+    topts = TextureOptions()
+    tmesh = height_field_mesh(320)
+    max_dim = imio.compute_max_resolution(
+        max(im.width for im in colored.images), max(im.height for im in colored.images),
+        topts.resolution_level, topts.min_resolution, 1 << 30)
+    qual, fc = texture.compute_face_qualities(colored, tmesh, max_dim)
+    qual = texture.remove_outlier_views(qual, fc, topts.outlier_threshold)
+    adj = texture._face_adjacency(tmesh.faces)
+    lam = topts.ratio_data_smoothness * 10
+    lab1 = texture.label_faces_lbp(qual, adj, lam, device=dev)
+    lab4 = texture.label_faces_lbp_sharded(qual, adj, lam, mesh.flat())
+    lbp_s = cuda_ms(lambda: texture.label_faces_lbp(qual, adj, lam, device=dev), 3) / 1e3
+    lbp4_s = cuda_ms(lambda: texture.label_faces_lbp_sharded(
+        qual, adj, lam, mesh.flat()), 3) / 1e3
+    lbp_eq = float((lab1 == lab4).mean())
+    emit({"phase": "multidevice", "check": "label_faces_lbp_sharded", "faces": len(qual),
+          "shards": mesh.size, "ms": lbp4_s * 1e3, "serial_ms": lbp_s * 1e3,
+          "equal_share": lbp_eq, "card": card})
+    if lbp_eq < 0.999:
+        raise RuntimeError(f"sharded LBP labels equal the serial ones on {lbp_eq}")
+
+    # 6. refine's pair axis over 2 shards
+    gt, v0 = _noisy_grid(150, 11)
+    fs = _FullScale(scene, v0, gt.faces)
+    pds, mt, scal, _ = fs.on(dev)
+    e1, g1 = refine._energy_grad(mt.verts, pds, mt.adj, mt.deg, mt.faces, *scal[:3],
+                                 mt.boundary, scal[3])
+    npd = refine.PairData(**{k: getattr(pds, k).cpu().numpy() for k in pds._fields})
+    shards = refine.shard_pairs(npd, mt.faces, [dev, dev])
+    e2, g2 = refine._energy_grad(mt.verts, shards, mt.adj, mt.deg, mt.faces, *scal[:3],
+                                 mt.boundary, scal[3])
+    g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
+    e_rel = abs(float(e2) - float(e1)) / max(abs(float(e1)), 1.0)
+    g_fail = int((np.abs(g2 - g1) > 1e-4 * np.abs(g1) + 1e-6).sum())
+    out1, r1_s = _wall_s(lambda: refine.refine_mesh(
+        scene, mesh_from_numpy(v0, gt.faces), RefineOptions(), device=dev))
+    out2, r2_s = _wall_s(lambda: refine.refine_mesh(
+        scene, mesh_from_numpy(v0, gt.faces), RefineOptions(), device=dev,
+        devices=[dev, dev]))
+    err0, err1, err2 = (_height_error(v0), _height_error(out1.vertices),
+                        _height_error(out2.vertices))
+    emit({"phase": "multidevice", "check": "refine pairs over 2 shards",
+          "faces": len(gt.faces), "pairs": len(fs.pairs), "energy_rel": e_rel,
+          "grad_outside_rtol_1e-4_atol_1e-6": g_fail, "one_shard_s": r1_s,
+          "two_shards_s": r2_s, "height_error": [err0, err1, err2], "card": card})
+    if e_rel >= 1e-5 or g_fail:
+        raise RuntimeError(f"sharded _energy_grad: energy rel {e_rel}, {g_fail} gradient "
+                           "elements beyond rtol 1e-4 / atol 1e-6")
+    if err2 > 1.05 * err1:
+        raise RuntimeError(f"refine over 2 shards: height error {err2}, one shard {err1}")
+
+    # 7. SGM pairs and the fusion reduction over the 4 shards
+    from openmvs_tpu_torch.ops import sgm
+
+    P_n, Hs, Ws, num_d, d_min = 5, 240, 320, 32, -12
+    lefts, shifted = _sgm_batch(P_n, Hs, Ws, num_d, d_min)
+    (disp, _), sgm_s = _wall_s(lambda: sharded.sgm_pairs_sharded(
+        lefts, shifted, d_min, num_d, mesh.flat()))
+    eq = []
+    for p in range(P_n):
+        left = torch.from_numpy(lefts[p:p + 1]).to(dev)
+        vol = sgm._wzncc_volumes(left, torch.from_numpy(shifted[p:p + 1]).to(dev),
+                                 [d_min], num_d)
+        idx, _ = sgm._argmin_first(sgm.aggregate8(vol, left))
+        eq.append(float((disp[p] == idx[0].cpu().numpy() + d_min).mean()))
+    ref_id = max(final, key=lambda rid: len(final[rid].neighbor_ids))
+    r = final[ref_id]
+    yy, xx = np.nonzero(r.depth > 0)
+    yy, xx = yy[:4000], xx[:4000]
+    X = r.camera.unproject(np.stack([xx, yy], -1).astype(np.float64),
+                           r.depth[yy, xx].astype(np.float64))
+    Nw = r.normal[yy, xx].astype(np.float64) @ r.camera.R
+    nbs = [final[j] for j in r.neighbor_ids if j in final]
+    nb = dict(depth=np.stack([v.depth for v in nbs]), normal=np.stack([v.normal for v in nbs]),
+              conf=np.stack([v.conf for v in nbs]), K=np.stack([v.camera.K for v in nbs]),
+              R=np.stack([v.camera.R for v in nbs]), C=np.stack([v.camera.C for v in nbs]),
+              valid=np.ones(len(nbs), np.float32))
+    (accX, accW, nA), fus_s = _wall_s(lambda: sharded.fusion_reduce_sharded(
+        X.astype(np.float32), Nw.astype(np.float32), nb, opts, mesh.flat()))
+    sX, sW, sA = _fusion_serial(X, Nw, nbs, opts)
+    both = (sW > 0) & (accW > 0)
+    relw = float((np.abs(accW[both] - sW[both]) / np.maximum(sW[both], 1e-9) < 1e-3).mean())
+    agree_eq = float((nA == sA).mean())
+    emit({"phase": "multidevice", "check": "sgm_pairs and fusion_reduce sharded",
+          "sgm_pairs": P_n, "sgm_hw_d": [Hs, Ws, num_d], "sgm_s": sgm_s,
+          "sgm_equal_share": eq, "fusion_candidates": len(X), "fusion_views": len(nbs),
+          "fusion_s": fus_s, "fusion_agree_equal": agree_eq,
+          "fusion_weight_within_1e-3": relw, "phase_s": time.perf_counter() - t_phase,
+          "card": card})
+    if min(eq) < 0.999 or agree_eq < 0.999 or relw < 0.999:
+        raise RuntimeError(f"sharded SGM pairs {eq} or fusion reduction "
+                           f"({agree_eq}, {relw}) below 0.999")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "openmvs_tpu_torch")):
         raise SystemExit("chip_smoke: openmvs_tpu_torch/ not found beside this script")
@@ -3166,7 +3513,8 @@ def main():
     scene = scene_from_arrays(**dict(arrays, colors=None))
     rows = phase_kernels(card, scene, gts)
     launches = {"variants": phase_variants(card)}
-    launches["densify"], maps, dense = phase_densify(card, scene, gts, t_scene)
+    launches["densify"], maps, dense, dense_s = phase_densify(card, scene, gts, t_scene)
+    phase_multidevice(card, scene, colored, gts, dense, maps, dense_s)
     phase_profile(card, scene)
     launches["geom_split"] = phase_geom_split(card, scene, gts, maps,
                                               launches["densify"])

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -102,6 +103,7 @@ SIGNATURES = {
 RESTYPES = {"pm_error_string": ctypes.c_char_p}
 
 _libs = {}
+_LOAD_LOCK = threading.Lock()
 # per source: nvcc seconds and output (ptxas register and spill lines)
 BUILD_INFO = {"seconds": None, "sources": {}, "dir": None}
 
@@ -164,11 +166,25 @@ def build() -> Path:
 
 def library(name: str = "pm_score") -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (all sources are
-    built on first use)."""
-    if name in _libs:
-        return _libs[name]
+    built on first use, once for the process: worker threads wait)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     if name not in SIGNATURES:
         raise KeyError(f"no kernel library {name!r}")
+    with _LOAD_LOCK:
+        if name not in _libs:
+            _libs[name] = _load(name)
+    return _libs[name]
+
+
+def load_all() -> None:
+    """Build and load every kernel library, before worker threads launch."""
+    for name in SIGNATURES:
+        library(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build() / f"{name}.so"))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
@@ -181,7 +197,6 @@ def library(name: str = "pm_score") -> ctypes.CDLL:
     fn, want = limits[name]
     if getattr(lib, fn)() != want:
         raise RuntimeError(f"{name} library and wrapper disagree on {fn}")
-    _libs[name] = lib
     return lib
 
 

@@ -625,10 +625,18 @@ def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
     n_best = torch.gather(cn, 0, best[..., None].expand(1, *cn.shape[1:]))[0]
     take = active & (s_best < state.conf)
     nb = -(-state.conf.shape[0] // pm_kernel.BAND_ROWS)
-    BANDS["scored"] += nb
+    skipped = None
     if band_act is not None:
         take = take & pm_kernel.band_rows(band_act, take.shape[0])[:, None]
-        BANDS["skipped"] = BANDS["skipped"] + (~band_act).sum()
+        skipped = (~band_act).sum()
+    with pm_kernel.COUNT_LOCK:
+        BANDS["scored"] += nb
+        if skipped is not None:
+            prev = BANDS["skipped"]
+            # kept on the first flags' device (worker threads may sweep on
+            # several devices)
+            BANDS["skipped"] = (prev + skipped.to(prev.device) if torch.is_tensor(prev)
+                                else prev + skipped)
     return PMState(
         depth=torch.where(take, d_best, state.depth),
         normal=torch.where(take[..., None], n_best, state.normal),

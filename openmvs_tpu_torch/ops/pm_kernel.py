@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -73,9 +74,22 @@ _GEOM_MODES = {"none": 0, "geom": 1, "pre": 2}
 BAND_ROWS = 16
 
 
+# worker threads of several devices launch at once (densify's
+# _run_views_parallel): every update of LAUNCHES, and of
+# patchmatch.BANDS, holds this lock
+COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``."""
+    with COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ------------------------------------------------------------- plain versions
@@ -484,7 +498,7 @@ def score_view(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
     score, _ = _launch(img, size, Hl, Hm, None, None, None, depth, normal,
                        inv_nd, X0, None, goff, w, wtm, sum_w, norm_sq0,
                        th_robust, nearest, geom=False)
-    LAUNCHES["score_view_nn" if nearest else "score_view_exact"] += 1
+    count_launch("score_view_nn" if nearest else "score_view_exact")
     return score
 
 
@@ -504,7 +518,7 @@ def score_view_geom(img, size, Hl, Hm, Tr, Tn, dm, depth, normal, inv_nd, X0,
     score, cons = _launch(img, size, Hl, Hm, Tr, Tn, dm, depth, normal,
                           inv_nd, X0, uv, goff, w, wtm, sum_w, norm_sq0,
                           th_robust, nearest, geom=True)
-    LAUNCHES["score_view_geom_nn" if nearest else "score_view_geom_exact"] += 1
+    count_launch("score_view_geom_nn" if nearest else "score_view_geom_exact")
     return score, cons
 
 
@@ -527,7 +541,7 @@ def geom_term(dm, size, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
             _ptr(Tr), _ptr(Tn), _ptr(depth), _ptr(X0), _ptr(uv), _ptr(cons),
             C, H, W, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_geom_term")
-    LAUNCHES["geom_term"] += 1
+    count_launch("geom_term")
     return cons
 
 
@@ -571,7 +585,7 @@ def score_view_v2(img, size, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
             C, H, W, ctypes.c_float(th_robust), int(nearest),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_score_view_v2")
-    LAUNCHES["score_view_v2_nn" if nearest else "score_view_v2_exact"] += 1
+    count_launch("score_view_v2_nn" if nearest else "score_view_v2_exact")
     return score
 
 
@@ -599,7 +613,7 @@ def geom_terms(dms, sizes, Tl, Tm, Tr, Tn, depth, X0, uv) -> torch.Tensor:
             _ptr(Tn), _ptr(depth), _ptr(X0), _ptr(uv), _ptr(out), V, C, H, W,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_geom_views_launch")
-    LAUNCHES["geom_terms"] += 1
+    count_launch("geom_terms")
     return out
 
 
@@ -660,5 +674,5 @@ def score_views(images, sizes, Hl, Hm, depth, normal, inv_nd, X0, goff, w, wtm,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, "pm_score_views_launch")
     infix = ("" if mode == "none" else f"_{mode}") + ("" if band_act is None else "_act")
-    LAUNCHES[f"score_views{infix}_{'nn' if nearest else 'exact'}"] += 1
+    count_launch(f"score_views{infix}_{'nn' if nearest else 'exact'}")
     return out

@@ -17,8 +17,9 @@ between, the reference's fixed visibility per iteration. All pairs are
 stacked on a leading pair axis and each iteration is one pass of plain
 PyTorch on the device: the JAX package reaches no Pallas kernel here.
 
-The serial path is ported. Left out: the TPU compile-cache levers (shape
-bucketing), the sharded pair axis, the full-autodiff Adam path
+``refine_mesh(devices=[...])`` splits the pair axis over several devices
+(``PairShards``). Left out: the TPU compile-cache levers (shape
+bucketing), the full-autodiff Adam path
 (``OMVS_REFINE_CPU_AD``) and the other ``OMVS_REFINE_*`` switches (their
 defaults run). The mesh conditioning before the scales (``decimate``,
 ``ensure_edge_size``; ``condition_mesh``) is host code from ``mesh_ops``.
@@ -36,8 +37,8 @@ from openmvs_tpu_torch import mesh_ops, native
 from openmvs_tpu_torch.config import DenseOptions, RefineOptions
 from openmvs_tpu_torch.io import images as imio
 from openmvs_tpu_torch.mesh_ops import edges_of_faces
+from openmvs_tpu_torch.parallel.mesh import psum, resolve_device, to
 from openmvs_tpu_torch.scene import Mesh, Scene
-from openmvs_tpu_torch.utils import device as device_mod
 from openmvs_tpu_torch.utils.fmath import fma, rsqrt
 from openmvs_tpu_torch.utils.log import get_logger, timed
 from openmvs_tpu_torch.view_selection import select_views_for_scene
@@ -608,10 +609,10 @@ def _pair_face_acc(verts: torch.Tensor, pd: PairData, half: int = 3):
             idx.reshape(*idx.shape[:-2], -1), torch.sum(M, dim=(-2, -1)))
 
 
-def _pairs_grad_faces(verts, pds, faces):
-    """All-pairs photometric (energies (P,), per-vertex gradient sum in
-    world units, per-vertex supporting-pair count) via the per-face scatter
-    path. Matches the per-vertex path up to float reduction order."""
+def _photo_face_sums(verts, pds, faces):
+    """One set of stacked pairs' share of the photometric gradient:
+    (energies (P,), the per-face sums (nf, 9) of the pairs' weighted
+    barycentric contributions, per-vertex supporting-pair count (nv,))."""
     nf = faces.shape[0]
     nv = verts.shape[0]
     es, rows, idx, n_valids = _pair_face_acc(verts, pds)
@@ -624,14 +625,69 @@ def _pairs_grad_faces(verts, pds, faces):
     acc9 = accs[0, :, :9] * w_pair[0]                       # (nf, 9)
     for p in range(1, Pn):
         acc9 = fma(accs[p, :, :9], w_pair[p], acc9)
-    g = _segment_sum(faces.reshape(-1), acc9.reshape(nf * 3, 3), nv)
     # per-pair vertex support (photoGradNorm>0 role): a vertex is supported
     # by pair p iff any valid pixel rasterized one of its faces in p
     touched_f = (accs[..., 9] > 0).to(torch.float32)        # (P, nf)
     sup = _segment_sum((faces.reshape(1, -1) + pair * nv).reshape(-1),
                        touched_f.repeat_interleave(3, dim=1).reshape(-1), Pn * nv)
     n_sup = torch.sum((sup.reshape(Pn, nv) > 0).to(torch.float32), dim=0)
+    return es, acc9, n_sup
+
+
+def _pairs_grad_faces(verts, pds, faces):
+    """All-pairs photometric (energies (P,), per-vertex gradient sum in
+    world units, per-vertex supporting-pair count) via the per-face scatter
+    path. Matches the per-vertex path up to float reduction order.
+    ``pds`` may be a ``PairShards``: each shard sums its own pairs on its
+    device, and the shards' sums add on ``verts``' device (the JAX
+    package's GSPMD all-reduce over its sharded pair axis), so the pair sum
+    runs in another order than one device's."""
+    nf = faces.shape[0]
+    nv = verts.shape[0]
+    if isinstance(pds, PairShards):
+        parts = [_photo_face_sums(to(verts, f.device), pd, f)
+                 for pd, f in zip(pds.pds, pds.faces)]
+        dev = verts.device
+        es = torch.cat([to(p[0], dev) for p in parts])
+        acc9 = psum([p[1] for p in parts], dev)
+        n_sup = psum([p[2] for p in parts], dev)
+    else:
+        es, acc9, n_sup = _photo_face_sums(verts, pds, faces)
+    g = _segment_sum(faces.reshape(-1), acc9.reshape(nf * 3, 3), nv)
     return es, g, n_sup
+
+
+class PairShards(NamedTuple):
+    """The pair axis split over devices: each shard's stacked PairData (the
+    pairs padded with all-masked dummy pairs to equal shares) and the
+    mesh's faces, on the shard's device."""
+
+    pds: List[PairData]
+    faces: List[torch.Tensor]
+
+
+def _pad_split(nt, n_sh: int, fills=None) -> list:
+    """A NamedTuple of numpy arrays stacked on a pair axis, padded to a
+    multiple of ``n_sh`` pairs (each field with ``fills.get(name, 0)``)
+    and split into ``n_sh`` contiguous shares."""
+    fills = fills or {}
+    P = len(nt[0])
+    pad = (-P) % n_sh
+    if pad:
+        nt = type(nt)(*[np.concatenate([x, np.full((pad,) + x.shape[1:], fills.get(name, 0),
+                                                   x.dtype)])
+                        for name, x in zip(nt._fields, nt)])
+    size = (P + pad) // n_sh
+    return [type(nt)(*[x[s * size:(s + 1) * size] for x in nt]) for s in range(n_sh)]
+
+
+def shard_pairs(pds: PairData, faces: torch.Tensor, devices) -> PairShards:
+    """A PairData of numpy arrays (``fid`` given) as a PairShards over
+    ``devices``: dummy pairs have face id -1 everywhere, so every pixel is
+    masked and they add nothing."""
+    parts = _pad_split(pds, len(devices), {"fid": -1})
+    return PairShards([to_device(p, d) for p, d in zip(parts, devices)],
+                      [to(faces, d) for d in devices])
 
 
 # --------------------------------------------------------------- iteration
@@ -642,7 +698,7 @@ def _energy_grad(v, pds, adj, deg, faces, step0, med_edge, reg_w,
     reg_w and ratio are float32 scalars (0-d tensors on v's device, as the
     JAX package passes them)."""
     nv = v.shape[0]
-    if pds.fid is not None:
+    if isinstance(pds, PairShards) or pds.fid is not None:
         es, g_sum, n_sup = _pairs_grad_faces(v, pds, faces)
         photo = g_sum / torch.clamp(n_sup, min=1.0)[:, None]
     else:
@@ -903,10 +959,13 @@ def mesh_tensors(verts, faces, adj, deg, boundary, dev) -> MeshTensors:
 
 def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
                      opts: RefineOptions, dev: torch.device,
-                     host_s: Dict[str, float]) -> Tuple[Mesh, int, int]:
+                     host_s: Dict[str, float], devices=None) -> Tuple[Mesh, int, int]:
     """Refine ``mesh`` at one scale; returns (mesh, iterations, refreshes)
     and adds the host seconds of each refresh's download, rasterization
-    and upload to ``host_s``."""
+    and upload to ``host_s``. The pair axis is split over ``devices``
+    (``[dev]`` by default; no more shards than pairs) as a ``PairShards``;
+    the step is applied once, on ``dev``, and the vertices go to every
+    shard at the next iteration."""
     grays, cams = scaled_views(scene, scale)
     mesh = subdivide_to_area(mesh, scene, float(opts.max_face_area) / max(scale, 1e-3))
     faces = mesh.faces
@@ -932,7 +991,9 @@ def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
     iter_start = iters * 4 // 10 if opts.planar_vertex_ratio > 0 else 1 << 30
     # images/cameras never change within a scale: upload ONCE; each
     # refresh ships only fid + 2 barycentrics (+ scalars) per pair
-    statics = to_device(build_statics(pairs, grays, cams), dev)
+    shard_devs = list(devices or [dev])[:max(1, len(pairs))]
+    statics = [to_device(p, d) for p, d in zip(
+        _pad_split(build_statics(pairs, grays, cams), len(shard_devs)), shard_devs)]
     refreshes = 0
     for it in range(0, iters, RERASTER):
         t0 = time.perf_counter()
@@ -940,7 +1001,11 @@ def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
         t1 = time.perf_counter()
         rasters_np = build_rasters(pairs, grays, cams, faces, v_prev)
         t2 = time.perf_counter()
-        pds = _assemble_pair_data(statics, to_device(rasters_np, dev), mt.faces)
+        faces_s = [to(mt.faces, d) for d in shard_devs]
+        pds = PairShards(
+            [_assemble_pair_data(st, to_device(r, d), f) for st, r, d, f in zip(
+                statics, _pad_split(rasters_np, len(shard_devs), {"fid": -1}),
+                shard_devs, faces_s)], faces_s)
         ratio_it = torch.tensor(opts.rigidity_elasticity_ratio
                                 if it <= iter_stop else 1.0, **f32)
         t3 = time.perf_counter()
@@ -1026,14 +1091,17 @@ def condition_mesh(mesh: Mesh, opts: RefineOptions) -> Mesh:
 
 def refine_mesh(scene: Scene, mesh: Optional[Mesh] = None,
                 opts: RefineOptions = RefineOptions(), device="cuda",
-                stats: Optional[dict] = None) -> Mesh:
+                stats: Optional[dict] = None, devices=None) -> Mesh:
     """Coarse-to-fine photometric refinement (Scene::RefineMesh role) on
-    ``device`` ("cuda" by default; raises without a card).
+    ``device`` ("cuda" by default; raises without a card). ``devices``
+    (default ``[device]``): with more than one, the pair axis is split over
+    them and the per-shard gradients add on ``device``.
 
     ``stats``, if given, receives the pair count, per scale its seconds,
     iterations, refreshes and mesh size, and the host seconds of the
     refreshes' download, rasterization and upload (``host_s``)."""
-    dev = device_mod.resolve(device)
+    dev = resolve_device(device)
+    devices = [resolve_device(d) for d in devices] if devices else [dev]
     mesh = mesh if mesh is not None else scene.mesh
     if len(mesh.faces) == 0:
         raise ValueError("no mesh to refine")
@@ -1074,7 +1142,7 @@ def refine_mesh(scene: Scene, mesh: Optional[Mesh] = None,
         t0 = time.perf_counter()
         with timed(log, f"scale {scale:.2f}"):
             cur, iters, refreshes = _refine_at_scale(scene, cur, sp, scale,
-                                                     opts, dev, host_s)
+                                                     opts, dev, host_s, devices)
         per_scale.append({"scale": scale, "seconds": time.perf_counter() - t0,
                           "iters": iters, "refreshes": refreshes,
                           "vertices": len(cur.vertices), "faces": len(cur.faces)})

@@ -21,8 +21,8 @@ per-face sums stay ``np.add.at`` in index order, so qualities (and the
 labels they decide) are those of the JAX package to the bit. The JAX
 package reaches no Pallas kernel here (its device labeling is XLA-jitted
 ``jnp``), so the labeling is plain PyTorch. OpenCV's blurs are
-``io.images.box_blur`` and ``io.images.gaussian_blur``. Left out: the
-label-sharded LBP over several devices (``label_faces_lbp_sharded``).
+``io.images.box_blur`` and ``io.images.gaussian_blur``.
+``label_faces_lbp_sharded`` splits the labels over several shards.
 """
 
 from __future__ import annotations
@@ -190,52 +190,97 @@ def label_faces_lbp(
     Potts cost per directed edge (used for "virtual faces": near-rigid
     coplanar groups). Unseen faces (no view with quality > 0) get -1.
     """
-    dev = device_mod.resolve(device)
+    return _label_faces(quality, adj, smoothness, iters, lam_edge,
+                        [device_mod.resolve(device)])
+
+
+def label_faces_lbp_sharded(quality: np.ndarray, adj: np.ndarray,
+                            smoothness: float, devices, iters: int = 30,
+                            lam_edge: Optional[np.ndarray] = None) -> np.ndarray:
+    """label_faces_lbp over shards on ``devices``, split on the LABEL (view)
+    axis (texture.py:236-306 of the JAX package). The message storage
+    (nf, 3, L), the dominant memory at scale, is split L-ways; the labels
+    equal label_faces_lbp's (``_lbp_schedule``)."""
+    from openmvs_tpu_torch.parallel.mesh import resolve_device
+
+    return _label_faces(quality, adj, smoothness, iters, lam_edge,
+                        [resolve_device(d) for d in devices])
+
+
+def _label_faces(quality, adj, smoothness, iters, lam_edge, devs) -> np.ndarray:
+    """The data cost of ``quality`` with the label axis padded to a
+    multiple of ``len(devs)`` by labels of cost 1e6, which never decide a
+    minimum; the schedule on ``devs``; -1 for unseen faces."""
     nf, V = quality.shape
+    L = -(-V // len(devs)) * len(devs)
     qmax = quality.max(axis=1, keepdims=True)
     # data cost in [0, 1]: 1 - normalized quality; invisible = large cost
-    data = np.where(quality > 0, 1.0 - quality / np.maximum(qmax, 1e-12), 4.0).astype(np.float32)
-    lam = np.float32(smoothness)
+    data = np.full((nf, L), 1e6, np.float32)
+    data[:, :V] = np.where(quality > 0, 1.0 - quality / np.maximum(qmax, 1e-12), 4.0)
     lam_k = (lam_edge.astype(np.float32) if lam_edge is not None
-             else np.full((nf, 3), lam, np.float32))
+             else np.full((nf, 3), np.float32(smoothness), np.float32))
     _, rev, valid_edge = _rev_slots(adj)
-    labels = _lbp_schedule(data, adj, lam_k, rev, valid_edge, iters, dev)
+    labels = _lbp_schedule(data, adj, lam_k, rev, valid_edge, iters, devs)
     labels[quality.max(axis=1) <= 0] = -1                # unseen faces
     return labels
 
 
-def _lbp_schedule(data, adj, lam_k, rev, valid_edge, iters, dev) -> np.ndarray:
+def _lbp_schedule(data, adj, lam_k, rev, valid_edge, iters, devs) -> np.ndarray:
     """The message schedule of the JAX package's numpy ``label_faces_lbp``
-    (and of its jitted ``_label_faces_lbp_device``) on ``dev``, to the bit:
+    (and of its jitted ``_label_faces_lbp_device``), to the bit, with the
+    label axis of ``data`` (nf, L) split evenly over the shards on ``devs``:
     beliefs fix at the start of an iteration as data + ((m0 + m1) + m2),
     numpy's order of ``msg.sum(axis=1)``; the three slots deliver in turn,
     so slot k's writes are read by slot k+1. Each delivery is one
     ``index_put_`` without accumulation into a message array padded with a
     dummy row: mutual edges make the (target, reverse slot) pairs unique,
-    and invalid edges all write the dummy row, which is never read. Only
-    min, subtract and add touch the floats, so the card and the CPU agree
-    to the bit. Returns the argmin label per face (the first minimum, as
-    numpy's)."""
-    nf, L = data.shape
-    data_t = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-    lam_t = torch.from_numpy(np.ascontiguousarray(lam_k, np.float32)).to(dev)
-    tgt = torch.from_numpy(np.where(valid_edge, adj, nf).astype(np.int64)).to(dev)
-    rev_t = torch.from_numpy(np.asarray(rev, np.int64)).to(dev)
-    msg = torch.zeros((nf + 1, 3, L), dtype=torch.float32, device=dev)
-    m = msg[:nf]
+    and invalid edges all write the dummy row, which is never read. The
+    update is label-local except for the two per-face minima (hmin and the
+    normalisation), which are ``pmin`` reductions of (nf, 1) floats over
+    the shards, exact full-label minima. Only min, subtract and add touch
+    the floats, so the card and the CPU, and any number of shards, agree to
+    the bit. Returns the argmin label per face (the lowest global label of
+    the minimum, as numpy's)."""
+    from openmvs_tpu_torch.parallel.mesh import pmin, to
 
-    def belief():
-        return data_t + ((m[:, 0] + m[:, 1]) + m[:, 2])
+    nf, L = data.shape
+    n = len(devs)
+    Lloc = L // n
+
+    def put(x, dev):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    data_s = [put(data[:, s * Lloc:(s + 1) * Lloc], d) for s, d in enumerate(devs)]
+    lam_s = [put(np.asarray(lam_k, np.float32), d) for d in devs]
+    tgt_s = [put(np.where(valid_edge, adj, nf).astype(np.int64), d) for d in devs]
+    rev_s = [put(np.asarray(rev, np.int64), d) for d in devs]
+    msg_s = [torch.zeros((nf + 1, 3, Lloc), dtype=torch.float32, device=d) for d in devs]
+
+    def belief(s):
+        m = msg_s[s][:nf]
+        return data_s[s] + ((m[:, 0] + m[:, 1]) + m[:, 2])
+
+    def all_min(xs):
+        g = pmin([x.amin(dim=1, keepdim=True) for x in xs])
+        return [to(g, d) for d in devs]
 
     for _ in range(iters):
-        b = belief()
+        b = [belief(s) for s in range(n)]
         for k in range(3):
-            h = b - m[:, k]                               # exclude reverse msg
-            hmin = h.amin(dim=1, keepdim=True)
-            out = torch.minimum(h, hmin + lam_t[:, k : k + 1])
-            out = out - out.amin(dim=1, keepdim=True)     # normalize
-            msg.index_put_((tgt[:, k], rev_t[:, k]), out)
-    return torch.argmin(belief(), dim=1).cpu().numpy().astype(np.int64)
+            h = [b[s] - msg_s[s][:nf, k] for s in range(n)]        # exclude reverse msg
+            hmin = all_min(h)
+            out = [torch.minimum(h[s], hmin[s] + lam_s[s][:, k:k + 1]) for s in range(n)]
+            omin = all_min(out)                                     # normalize
+            for s in range(n):
+                msg_s[s].index_put_((tgt_s[s][:, k], rev_s[s][:, k]), out[s] - omin[s])
+    bel = [belief(s) for s in range(n)]
+    loc_min = [x.amin(dim=1) for x in bel]
+    loc_arg = [torch.argmin(x, dim=1) + s * Lloc for s, x in enumerate(bel)]
+    glob_min = pmin(loc_min)
+    # global argmin: the lowest label index reaching the global minimum
+    cand = [torch.where(to(m, devs[0]) == glob_min, to(a, devs[0]), L)
+            for m, a in zip(loc_min, loc_arg)]
+    return pmin(cand).cpu().numpy().astype(np.int64)
 
 
 def _trws_order(adj: np.ndarray, valid_edge: np.ndarray) -> np.ndarray:
