@@ -34,11 +34,18 @@ Phases, each printing one JSON line:
                   from the image), held to K1 bit for bit
   5. densify    - the synthetic 5-view 480x640 scene through
                   densify.dense_reconstruction(scene, DenseOptions()) on the
-                  card: throughput, point count, kernel launches (one
-                  multi-view launch per score_hypotheses call, no per-view
-                  K1/K2), and depth accuracy/completeness per view against
-                  ground truth, held to 95% of what the JAX package reaches
-                  on the same scene; its cloud goes on to phase pipeline
+                  card, its sweeps replayed as CUDA graphs (ops/graphs.py):
+                  throughput, point count, kernel launches (one multi-view
+                  launch per score_hypotheses call, counted per replay, no
+                  per-view K1/K2), captures, their seconds, replays and the
+                  graph pool's bytes, and depth accuracy/completeness per
+                  view against ground truth, held to 95% of what the JAX
+                  package reaches on the same scene; then the same call with
+                  the sweeps launched one by one (_eager): its photometric,
+                  geometric and whole-call seconds beside the graphed ones,
+                  and maps (depth, normal, confidence), cloud and launches
+                  equal to the graphed run's to the bit; the graphed cloud
+                  goes on to phase pipeline
   5b. multidevice - right after densify, on make_mesh(4) = (2, 2) shards of
                   the one card: estimate_views_sharded (photometric and 2
                   geometric passes) against the serial port run with
@@ -58,8 +65,12 @@ Phases, each printing one JSON line:
                   sgm_pairs_sharded and fusion_reduce_sharded against their
                   serial counterparts (0.999)
   6. profile    - torch.profiler over one view's photometric
-                  estimate_depth_map at 480x640: device-busy share, the top
-                  10 device kernels by time, launches, host time per sweep
+                  estimate_depth_map at 480x640, eager and with graphs
+                  captured by an earlier call (timed): seconds, device-busy
+                  share, kernels run on the device, the host's kernel
+                  launches and graph replays, the top 10 device kernels by
+                  time, host time per sweep; the graphed map equal to the
+                  eager one
   7. geom_split - the same under OMVS_GEOM_SPLIT=1 (geometric sweeps split
                   into candidates, K3-mv, then the scorer with the terms
                   precomputed, and selection): launches, quality, and
@@ -214,6 +225,7 @@ and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -1036,23 +1048,95 @@ class _StageLog(logging.Handler):
             self.stages[m.group(1)] = float(m.group(2))
 
 
-def _dmaps(folder, n):
+def _dmaps(folder, n, fields=("depth",)):
+    """The saved maps of views 0 to n - 1: each one array, or with several
+    ``fields`` a tuple of them."""
     from openmvs_tpu_torch.io import dmap
 
-    return [dmap.load(os.path.join(folder, f"depth{i:04d}.dmap")).depth
-            for i in range(n)]
+    out = []
+    for i in range(n):
+        dd = dmap.load(os.path.join(folder, f"depth{i:04d}.dmap"))
+        got = tuple(getattr(dd, f) for f in fields)
+        out.append(got if len(fields) > 1 else got[0])
+    return out
 
 
-def _run_densify(scene, device="cuda", env=None):
+@contextlib.contextmanager
+def _scoring_calls():
+    """Counts the calls of patchmatch.score_hypotheses in the block (a
+    one-element list). A call made while a sweep's CUDA graph is captured
+    counts at each replay of the graph (pm_kernel.host_effect), as its
+    launch does."""
+    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+
+    score = patchmatch.score_hypotheses
+    calls = [0]
+
+    def one():
+        calls[0] += 1
+
+    def counted(*a, **kw):
+        pm_kernel.host_effect(one)
+        return score(*a, **kw)
+
+    patchmatch.score_hypotheses = counted
+    try:
+        yield calls
+    finally:
+        patchmatch.score_hypotheses = score
+
+
+@contextlib.contextmanager
+def _graph_runners():
+    """The graphs.Runners made in the block (the sweep graphs of each
+    densify call), kept alive until it ends."""
+    from openmvs_tpu_torch.ops import graphs
+
+    made = []
+    cls = graphs.Runners
+
+    class Recorded(cls):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    graphs.Runners = Recorded
+    try:
+        yield made
+    finally:
+        graphs.Runners = cls
+        # the list and the class's closure form a cycle: break it, so the
+        # graphs go when the caller drops them, never in a later capture
+        made.clear()
+
+
+def _graph_summary(runners_list):
+    """Captures, their seconds, replays and the graph pools' bytes (the
+    card's segments of each runner's pool) of graphs.Runners objects."""
+    import torch
+
+    runners = [r for rs in runners_list for r in rs.all()]
+    pools = {r.pool for r in runners}
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) in pools)
+    return {"runners": len(runners), "captures": sum(r.captures for r in runners),
+            "capture_s": sum(r.capture_s for r in runners),
+            "replays": sum(r.replays for r in runners),
+            "classes": sum(r.n_classes for r in runners), "pool_bytes": pool_bytes}
+
+
+def _run_densify(scene, device="cuda", env=None, eager=False):
     """dense_reconstruction(scene, DenseOptions()) on ``device`` with the
     launch counts set to 0 just before and read just after, and ``env``
-    set around it only: (cloud, depth maps, wall s, launches, stage s,
-    calls of patchmatch.score_hypotheses)."""
+    set around it only; ``eager`` launches the sweeps one by one instead of
+    replaying their graphs: (cloud, depth maps, wall s, launches, stage s,
+    calls of patchmatch.score_hypotheses, extra), extra holding each
+    view's (depth, normal, conf) and, on the card, the graph summary."""
     import torch
 
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.ops import pm_kernel
 
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
@@ -1060,34 +1144,28 @@ def _run_densify(scene, device="cuda", env=None):
     logger = logging.getLogger("omvs_torch.densify")
     logger.addHandler(stage_log)
     os.environ.update(env)
-    score = patchmatch.score_hypotheses
-    calls = [0]
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return score(*a, **kw)
-
-    patchmatch.score_hypotheses = counted
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, _scoring_calls() as calls, \
+                _graph_runners() as made:
             pm_kernel.reset_launches()
             t0 = time.perf_counter()
-            pc = densify.dense_reconstruction(scene, DenseOptions(),
-                                              save_dmaps_to=tmp, device=device)
+            pc = densify.dense_reconstruction(scene, DenseOptions(), save_dmaps_to=tmp,
+                                              device=device, _eager=eager)
             if device == "cuda":
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(pm_kernel.LAUNCHES)
-            maps = _dmaps(tmp, len(scene.images))
+            full = _dmaps(tmp, len(scene.images), ("depth", "normal", "conf"))
+            extra = {"maps": full,
+                     "graphs": _graph_summary(made) if device == "cuda" else None}
     finally:
-        patchmatch.score_hypotheses = score
         logger.removeHandler(stage_log)
         for k, old in saved.items():
             if old is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = old
-    return pc, maps, wall, launches, stage_log.stages, calls[0]
+    return pc, [m[0] for m in full], wall, launches, stage_log.stages, calls[0], extra
 
 
 def _check_scoring(launches, calls):
@@ -1122,26 +1200,64 @@ def _check_quality(q):
                                f"JAX package's ({JAX_ACCURACY[i]}, {JAX_COMPLETENESS[i]})")
 
 
+def _pass_seconds(stages):
+    """(photometric, geometric, estimation) seconds of a densify stage log
+    (10 ms resolution)."""
+    photo = sum(v for k, v in stages.items() if k.startswith("photometric pass"))
+    geo = sum(v for k, v in stages.items() if k.startswith("geometric pass"))
+    return photo, geo, photo + geo
+
+
+def _same_maps(a, b):
+    """Per view, whether two runs' (depth, normal, conf) are equal to the
+    bit."""
+    import numpy as np
+
+    return [all(np.array_equal(x, y, equal_nan=True) for x, y in zip(ma, mb))
+            for ma, mb in zip(a, b)]
+
+
+def _same_cloud(a, b):
+    import numpy as np
+
+    return (len(a) == len(b) and np.array_equal(a.points, b.points)
+            and all(np.array_equal(x, y) for x, y in zip(a.views, b.views))
+            and all(np.array_equal(x, y) for x, y in zip(a.weights, b.weights)))
+
+
 def phase_densify(card, scene, gts, t_scene):
+    """The main path, its sweeps replayed as CUDA graphs, then the same call
+    with the sweeps launched one by one: the graphed run's maps and cloud
+    equal the eager run's bit for bit, with the same kernel launches."""
     from openmvs_tpu_torch.config import DenseOptions
     from openmvs_tpu_torch.synthetic import depth_quality
 
     n = len(scene.images)
     opts = DenseOptions()
-    pc, maps, wall, launches, stages, calls = _run_densify(scene)
+    pc, maps, wall, launches, stages, calls, extra = _run_densify(scene)
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     n_nbrs = [len(im.meta.view_scores) for im in scene.images]
     n_maps = n * (1 + opts.estimation_geometric_iters)
     # estimation alone (photometric and geometric passes, as bench.py of the
-    # JAX package counts depth maps), from the stage log's 10 ms resolution
-    est_s = sum(v for k, v in stages.items()
-                if k.startswith(("photometric pass", "geometric pass")))
+    # JAX package counts depth maps)
+    photo_s, geo_s, est_s = _pass_seconds(stages)
+    pc_e, _, wall_e, launches_e, stages_e, calls_e, extra_e = _run_densify(scene, eager=True)
+    photo_e, geo_e, est_e = _pass_seconds(stages_e)
+    same = _same_maps(extra["maps"], extra_e["maps"])
+    same_cloud = _same_cloud(pc, pc_e)
     rec = {"phase": "densify", "views": n, "H": 480, "W": 640,
            "depth_maps": n_maps, "wall_s": wall,
            "depth_maps_per_s": n_maps / wall, "estimate_s": est_s,
            "estimate_depth_maps_per_s": n_maps / est_s if est_s else None,
-           "stages_s": stages,
-           "scene_build_s": t_scene, "points": len(pc),
+           "photometric_s": photo_s, "geometric_s": geo_s,
+           "stages_s": stages, "graphs": extra["graphs"],
+           "eager": {"wall_s": wall_e, "photometric_s": photo_e, "geometric_s": geo_e,
+                     "estimate_s": est_e, "stages_s": stages_e,
+                     "score_hypotheses_calls": calls_e},
+           "graphed_over_eager": {"wall": wall / wall_e, "photometric": photo_s / photo_e,
+                                  "geometric": geo_s / geo_e},
+           "maps_equal_eager": same, "points_equal_eager": same_cloud,
+           "scene_build_s": t_scene, "points": len(pc), "eager_points": len(pc_e),
            "launches": launches, "score_hypotheses_calls": calls,
            "neighbors_per_view": n_nbrs,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
@@ -1151,6 +1267,14 @@ def phase_densify(card, scene, gts, t_scene):
     if any(launches[k] == 0 for k in MAIN_PATH):
         raise RuntimeError(f"a scorer kernel was not launched on the main path: {launches}")
     _check_scoring(launches, calls)
+    _check_scoring(launches_e, calls_e)
+    if launches != launches_e:
+        raise RuntimeError(f"graphed launches {launches}, eager {launches_e}")
+    if not (all(same) and same_cloud):
+        raise RuntimeError(f"graphed and eager densify differ: maps equal {same}, "
+                           f"points equal {same_cloud} ({len(pc)} and {len(pc_e)})")
+    if not (extra["graphs"]["captures"] and extra["graphs"]["replays"]):
+        raise RuntimeError(f"the sweeps ran without graphs: {extra['graphs']}")
     # per depth map: K1-mv <= 12 per pyramid level, K2-mv = 3 per geometric
     # map (the incumbent and two parities)
     k1 = launches["score_views_exact"] + launches["score_views_nn"]
@@ -1182,7 +1306,8 @@ def _union_us(intervals):
 def _device_summary(prof, top_n, skip=()):
     """The CUDA events of a torch.profiler run: their count, kernel
     launches (events less copies and sets), copies, device-busy seconds
-    (the union of their spans) and the ``top_n`` names by total time.
+    (the union of their spans), the seconds from the first event's start
+    to the last one's end, and the ``top_n`` names by total time.
     ``skip`` names events to leave out: a record_function range also
     appears on the device timeline, spanning the kernels it launched."""
     from torch.autograd import DeviceType
@@ -1197,64 +1322,120 @@ def _device_summary(prof, top_n, skip=()):
                  if name.startswith(("Memcpy", "Memset")))
     busy_s = _union_us([(e.time_range.start, e.time_range.end)
                         for e in dev_events]) / 1e6
+    span_s = ((max(e.time_range.end for e in dev_events)
+               - min(e.time_range.start for e in dev_events)) / 1e6 if dev_events else 0.0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     return {"events": len(dev_events), "launches": len(dev_events) - copies,
-            "copies": copies, "busy_s": busy_s,
+            "copies": copies, "busy_s": busy_s, "span_s": span_s,
             "top": [{"name": name[:160], "total_ms": tot / 1e3, "count": cnt,
                      "share_of_busy": tot / 1e6 / busy_s}
                     for name, (tot, cnt) in top] if busy_s else []}
 
 
+# the host's CUDA calls that launch one kernel each
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
+def _host_calls(prof):
+    """The CUDA API calls (``cuda*`` and ``cu*``) the host made in a
+    torch.profiler run, by name."""
+    from torch.autograd import DeviceType
+
+    calls = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cu"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
 def phase_profile(card, scene):
     """One view's photometric estimate_depth_map (view 0, 480x640, the
-    3-level pyramid) under torch.profiler with CUDA activity, after one
-    unprofiled run of the same call: device-busy share, the top 10 device
-    kernels by total time, launches, and host time per sweep outside the
-    kernels (the unprofiled wall less the device-busy time, over the sweeps
-    run). Reads the view selection phase densify made."""
+    3-level pyramid), eager and with its sweeps replayed as CUDA graphs
+    (captured by a first call, which is timed), each under torch.profiler
+    with CUDA activity after one unprofiled run of the same call: per mode
+    the seconds, sweeps, device-busy share, kernels run on the device, the
+    host's kernel launches and graph replays (its CUDA calls in the trace),
+    copies, host synchronisations, the top 10 device kernels by total time,
+    and host time per sweep outside the kernels (the unprofiled wall less
+    the device-busy time, over the sweeps run); graphed, the captures, their
+    seconds and the graph pool's bytes. The graphed map equals the eager
+    one. Reads the view selection phase densify made."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import patchmatch
+    from openmvs_tpu_torch.ops import graphs, patchmatch, pm_kernel
 
     opts = DenseOptions()
     counts = {"half_steps": 0}
     sweep_parity = patchmatch._sweep_parity
 
-    def counted(*a, **kw):
+    def one():
         counts["half_steps"] += 1
+
+    def counted(*a, **kw):
+        pm_kernel.host_effect(one)
         return sweep_parity(*a, **kw)
 
-    def run():
+    def run(**kw):
         t0 = time.perf_counter()
-        densify.estimate_depth_map(scene, 0, opts, device="cuda")
+        r = densify.estimate_depth_map(scene, 0, opts, device="cuda", **kw)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        return r, time.perf_counter() - t0
 
+    runners = graphs.Runners()
+    modes, maps = {}, {}
     torch.cuda.synchronize()
     patchmatch._sweep_parity = counted
     try:
-        wall = run()
-        sweeps = counts["half_steps"] / 2
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_profiled = run()
+        _, first_s = run(runners=runners)
+        for name, kw in (("eager", {"_eager": True}), ("graphed", {"runners": runners})):
+            counts["half_steps"] = 0
+            maps[name], wall = run(**kw)
+            sweeps = counts["half_steps"] / 2
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall_profiled = run(**kw)
+            dev = _device_summary(prof, 10)
+            api = _host_calls(prof)
+            busy_s = dev["busy_s"]
+            modes[name] = {
+                "wall_s": wall, "wall_profiled_s": wall_profiled, "sweeps": sweeps,
+                "device_busy_s": busy_s,
+                "device_busy_share_of_profiled": busy_s / wall_profiled,
+                "device_busy_share": min(busy_s / wall, 1.0),
+                # from the first device event to the last: the host's work
+                # before the first upload (seeds) left out
+                "device_busy_share_of_span": busy_s / dev["span_s"],
+                "kernels_run_on_device": dev["launches"], "device_copies": dev["copies"],
+                "host_kernel_launches": sum(api.get(k, 0) for k in LAUNCH_APIS),
+                "graph_replays": api.get("cudaGraphLaunch", 0),
+                "host_copies": api.get("cudaMemcpyAsync", 0),
+                "host_syncs": sum(api.get(k, 0) for k in (
+                    "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")),
+                "host_s_per_sweep_outside_kernels": (wall - busy_s) / sweeps,
+                "top10_kernels": dev["top"]}
+        summary = _graph_summary([runners])
     finally:
         patchmatch._sweep_parity = sweep_parity
-    dev = _device_summary(prof, 10)
-    busy_s = dev["busy_s"]
+    same = _same_maps([[getattr(maps["graphed"], f) for f in ("depth", "normal", "conf")]],
+                      [[getattr(maps["eager"], f) for f in ("depth", "normal", "conf")]])
+    g, e = modes["graphed"], modes["eager"]
     rec = {"phase": "profile", "view": 0, "H": 480, "W": 640,
-           "wall_s": wall, "wall_profiled_s": wall_profiled, "sweeps": sweeps,
-           "profiler_device_events": dev["events"],
-           "device_busy_s": busy_s,
-           "device_busy_share_of_profiled": busy_s / wall_profiled,
-           "device_busy_share": min(busy_s / wall, 1.0),
-           "kernel_launches": dev["launches"], "copies": dev["copies"],
-           "host_s_per_sweep_outside_kernels": (wall - busy_s) / sweeps,
-           "top10_kernels": dev["top"],
-           "card": card}
+           "graphed_first_call_s": first_s, "graphs": summary, **modes,
+           "graphed_over_eager_s": g["wall_s"] / e["wall_s"],
+           "map_equal_eager": same[0], "card": card}
     emit(rec)
+    if not same[0]:
+        raise RuntimeError("the graphed photometric map differs from the eager one")
+    if not g["graph_replays"] or g["host_kernel_launches"] >= e["host_kernel_launches"]:
+        raise RuntimeError(f"graphed: {g['graph_replays']} replays, "
+                           f"{g['host_kernel_launches']} host launches against "
+                           f"{e['host_kernel_launches']} eager")
+    if np.isnan(g["device_busy_share"]):
+        raise RuntimeError("the profiler saw no device time")
     return rec
 
 
@@ -1268,7 +1449,7 @@ def phase_geom_split(card, scene, gts, default_maps, default_launches):
 
     n = len(scene.images)
     opts = DenseOptions()
-    pc, maps, wall, launches, stages, calls = _run_densify(
+    pc, maps, wall, launches, stages, calls, _ = _run_densify(
         scene, env={"OMVS_GEOM_SPLIT": "1"})
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
@@ -1307,7 +1488,7 @@ def phase_parity(card):
     out = {}
     for dev in ("cuda", "cpu"):
         scene, _, _ = build_gt_scene(n_views=n, W=160, H=120)
-        pc, maps, wall, _, _, _ = _run_densify(scene, dev)
+        pc, maps, wall, _, _, _, _ = _run_densify(scene, dev)
         out[dev] = (len(pc), maps, wall)
     mask_agree, depth_agree, identical = _agreement(out["cuda"][1], out["cpu"][1])
     pts = (out["cuda"][0], out["cpu"][0])
@@ -1334,7 +1515,7 @@ def phase_geom_unfused(card, default_maps):
 
     n = 5
     scene, _, _ = build_gt_scene(n_views=n, W=160, H=120)
-    pc, maps, wall, launches, _, calls = _run_densify(
+    pc, maps, wall, launches, _, calls, _ = _run_densify(
         scene, env={"OMVS_GEOM_FUSED": "0"})
     mask_agree, depth_agree, identical = _agreement(maps, default_maps)
     # per geometric map: the incumbent (C=1) and two parities, one K3-mv
@@ -2442,7 +2623,7 @@ def phase_files(card, folder):
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.io import obj as objio
     from openmvs_tpu_torch.io import ply as plyio
-    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.ops import pm_kernel
     from openmvs_tpu_torch.scene import Mesh, Scene
     from openmvs_tpu_torch.synthetic import write_scene_files
 
@@ -2460,35 +2641,28 @@ def phase_files(card, folder):
     # densify in this process, through the CLI's main
     held = {}
     dense = densify.dense_reconstruction
-    score = patchmatch.score_hypotheses
-    calls = [0]
 
     def keep(scene, *a, **kw):
         held["pc"] = dense(scene, *a, **kw)
         held["views"] = [(im.width, im.height, im.gray.shape) for im in scene.images]
         return held["pc"]
 
-    def counted(*a, **kw):
-        calls[0] += 1
-        return score(*a, **kw)
-
     stage_log = _StageLog()
     logger = logging.getLogger("omvs_torch")
     logger.addHandler(stage_log)
     densify.dense_reconstruction = keep
-    patchmatch.score_hypotheses = counted
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        pm_kernel.reset_launches()
-        t0 = time.perf_counter()
-        cli.main(["densify", mvs])
-        torch.cuda.synchronize()
-        densify_s = time.perf_counter() - t0
-        launches = dict(pm_kernel.LAUNCHES)
+        with _scoring_calls() as calls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pm_kernel.reset_launches()
+            t0 = time.perf_counter()
+            cli.main(["densify", mvs])
+            torch.cuda.synchronize()
+            densify_s = time.perf_counter() - t0
+            launches = dict(pm_kernel.LAUNCHES)
     finally:
         densify.dense_reconstruction = dense
-        patchmatch.score_hypotheses = score
         logger.removeHandler(stage_log)
     densify_peak = torch.cuda.max_memory_allocated()
     pc = held["pc"]
@@ -2594,7 +2768,7 @@ def phase_imports(card, files_error):
     from openmvs_tpu_torch.interfaces.undistort import undistort_image
     from openmvs_tpu_torch.io import images as imio
     from openmvs_tpu_torch.io import ply as plyio
-    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.ops import pm_kernel
     from openmvs_tpu_torch.synthetic import DISTORTION, camera_intrinsics, write_eth3d_files
 
     t_phase = time.perf_counter()
@@ -2624,23 +2798,13 @@ def phase_imports(card, files_error):
         for name, digest in undistorted.items():
             print(f"sha256 undistorted/{name} {digest}", flush=True)
 
-        score = patchmatch.score_hypotheses
-        calls = [0]
-
-        def counted(*a, **kw):
-            calls[0] += 1
-            return score(*a, **kw)
-
-        patchmatch.score_hypotheses = counted
-        try:
+        with _scoring_calls() as calls:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             pm_kernel.reset_launches()
             densify_s, _ = _quiet(cli.main, ["densify", mvs])
             torch.cuda.synchronize()
             launches = dict(pm_kernel.LAUNCHES)
-        finally:
-            patchmatch.score_hypotheses = score
         densify_peak = torch.cuda.max_memory_allocated()
         dense_mvs = os.path.join(work, "scene_dense.mvs")
         cloud = plyio.load(dense_mvs.replace(".mvs", ".ply")).vertices
@@ -2777,7 +2941,7 @@ def phase_project(card, files):
     from openmvs_tpu_torch import native
     from openmvs_tpu_torch.io import boost_archive as bar
     from openmvs_tpu_torch.io import ply as plyio
-    from openmvs_tpu_torch.ops import patchmatch, pm_kernel
+    from openmvs_tpu_torch.ops import pm_kernel
     from openmvs_tpu_torch.scene import Mesh, Scene
 
     t_phase = time.perf_counter()
@@ -2807,15 +2971,7 @@ def phase_project(card, files):
 
     project = os.path.join(folder, f"project_{types[-1]}.mvs")
     dmaps = os.path.join(folder, "project_dmaps")
-    score = patchmatch.score_hypotheses
-    calls = [0]
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return score(*a, **kw)
-
-    patchmatch.score_hypotheses = counted
-    try:
+    with _scoring_calls() as calls:
         torch.cuda.synchronize()
         pm_kernel.reset_launches()
         t0 = time.perf_counter()
@@ -2824,8 +2980,6 @@ def phase_project(card, files):
         torch.cuda.synchronize()
         densify_s = time.perf_counter() - t0
         launches = dict(pm_kernel.LAUNCHES)
-    finally:
-        patchmatch.score_hypotheses = score
     points = len(Scene.load(os.path.join(folder, "project_dense.mvs")).pointcloud)
     rec = {"phase": "project", "zstd": "loads" if zstd else "absent",
            "mesh_faces": len(ref.mesh.faces), "archives": io_rec,
@@ -3085,7 +3239,7 @@ def phase_switches(card, scene, gts, textured, dmap_path):
                        ("active", {"OMVS_EARLY_EXIT": "0", "OMVS_ACTIVE": "5e-3"}),
                        ("all_exact_active", {"OMVS_ALL_EXACT": "1", "OMVS_ACTIVE": "5e-3"})):
         patchmatch.BANDS.update(scored=0, skipped=0)
-        pc, maps, wall, launches, stages, calls = _run_densify(scene, env=env)
+        pc, maps, wall, launches, stages, calls, _ = _run_densify(scene, env=env)
         q = [depth_quality(maps[i], gts[i]) for i in range(n)]
         counts, share = _band_counts()
         runs[label] = {"env": env, "wall_s": wall, "stages_s": stages, "points": len(pc),
@@ -3174,12 +3328,15 @@ def _wall_s(fn):
 
 def _serial_chain(scene, opts, dev):
     """The serial port's photometric pass and geometric passes over every
-    view under OMVS_EARLY_EXIT=0, the schedule the sharded path runs:
+    view under OMVS_EARLY_EXIT=0, the schedule the sharded path runs, its
+    sweep graphs kept across the calls as dense_reconstruction keeps them:
     (list of {id: DepthMapResult} per pass, seconds per pass)."""
     from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.ops import graphs
 
     saved = os.environ.get("OMVS_EARLY_EXIT")
     os.environ["OMVS_EARLY_EXIT"] = "0"
+    runners = graphs.Runners()
     passes, secs = [], []
     try:
         prev = None
@@ -3191,7 +3348,8 @@ def _serial_chain(scene, opts, dev):
                         continue
                     r = densify.estimate_depth_map(
                         scene, i, opts, prev=None if prev is None else prev[im.meta.id],
-                        neighbor_results=prev, geometric_iter=gi, device=dev)
+                        neighbor_results=prev, geometric_iter=gi, device=dev,
+                        runners=runners)
                     if r is not None:
                         out[im.meta.id] = r
                 return out

@@ -26,3 +26,11 @@ def refine_mesh() -> None:
 
 def texture_mesh() -> None:
     _run("texture")
+
+
+def transform_scene() -> None:
+    _run("transform")
+
+
+def viewer() -> None:
+    _run("view")

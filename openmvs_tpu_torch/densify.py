@@ -50,7 +50,7 @@ from openmvs_tpu_torch.geometry.camera import Camera
 from openmvs_tpu_torch.io import dimap as dimapio
 from openmvs_tpu_torch.io import dmap as dmapio
 from openmvs_tpu_torch.io import images as imio
-from openmvs_tpu_torch.ops import filters, fusion, patchmatch, seed, sgm
+from openmvs_tpu_torch.ops import filters, fusion, graphs, patchmatch, seed, sgm
 from openmvs_tpu_torch.scene import PointCloud, Scene
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils import rng, safety
@@ -254,6 +254,8 @@ def estimate_depth_map(
     rng_seed: int = 0,
     defer_download: bool = False,
     device="cuda",
+    runners: Optional[graphs.Runners] = None,
+    _eager: bool = False,
 ):
     """PatchMatch depth estimation for one reference view.
 
@@ -261,8 +263,18 @@ def estimate_depth_map(
     (EstimateDepthMap, SceneDensify.cpp:616-805); otherwise one
     geometric-consistency iteration at full resolution using the neighbors'
     current depth maps.
+
+    On the card the sweeps run as CUDA graphs replayed over static buffers
+    (``ops/graphs.py``): ``runners`` (a ``dense_reconstruction`` call's)
+    holds them across calls, else this call captures its own. On the CPU
+    the sweeps run eagerly unless ``runners`` is given (the runner's CPU
+    form). ``_eager`` runs them eagerly on the card too, the reference the
+    graphs are checked against.
     """
     dev = devmod.resolve(device)
+    runner = None
+    if not _eager and (runners is not None or dev.type == "cuda"):
+        runner = (runners or graphs.Runners()).get(dev)
     img = scene.images[ref_idx]
     neighbors = img.meta.view_scores
     if not neighbors:
@@ -356,13 +368,13 @@ def estimate_depth_map(
         )
         key = rng.prng_key(rng_seed * 7919 + ref_idx * 131 + level + 1000 * (geometric_iter + 1))
         nV = len(nbr_grays)
+        pm = graphs.Sweeps(data, opts, nV, is_geometric, runner)
         # the incumbent is scored in the first sweep's sampling mode
         all_exact = bool(os.environ.get("OMVS_ALL_EXACT"))
         first_mode = "exact" if (all_exact or 0 >= n_iters - n_exact) else "nn"
         if os.environ.get("OMVS_INIT_EXACT"):
             first_mode = "exact"
-        state = patchmatch.init_state(data, opts, key, sd, sn, nV, is_geometric,
-                                      mode=first_mode)
+        pm.init(key, sd, sn, first_mode)
         # Sweep schedule: nearest-sample search sweeps as one adaptive
         # early-exit block (OMVS_EARLY_EXIT=0 runs them one by one), then
         # exact bilinear final sweeps (the mode switch rescores the
@@ -371,14 +383,11 @@ def estimate_depth_map(
         prev_mode = None
         it0 = 0
         if os.environ.get("OMVS_EARLY_EXIT", "1") not in ("0", "") and n_nn >= 3:
-            state, _ = patchmatch.sweep_block_adaptive(
-                state, data, opts, key, nV, is_geometric,
-                n_perturb=n_pert, mode="nn", n_prop=8,
-                first_fold=1, n_sweeps=n_nn,
-                min_sweeps=max(0, int(os.environ.get("OMVS_EE_MIN", "2"))),
-                eps=float(os.environ.get("OMVS_EE_EPS", "5e-3")),
-                min_frac=float(os.environ.get("OMVS_EE_FRAC", "0.01")),
-            )
+            pm.block(key, n_perturb=n_pert, mode="nn", n_prop=8,
+                     first_fold=1, n_sweeps=n_nn,
+                     min_sweeps=max(0, int(os.environ.get("OMVS_EE_MIN", "2"))),
+                     eps=float(os.environ.get("OMVS_EE_EPS", "5e-3")),
+                     min_frac=float(os.environ.get("OMVS_EE_FRAC", "0.01")))
             prev_mode = "nn"
             it0 = n_nn
         # OMVS_ACTIVE=<eps>: from sweep OMVS_ACTIVE_FROM on, bands where no
@@ -390,21 +399,17 @@ def estimate_depth_map(
         except ValueError:
             active_eps = 0.0
         active_from = int(os.environ.get("OMVS_ACTIVE_FROM", "2"))
-        prev_conf = None
+        have_prev = False
         for it in range(it0, n_iters):
             mode = "exact" if (it >= n_iters - n_exact or all_exact) else "nn"
             rescore = prev_mode is not None and mode != prev_mode
             eps_it = (active_eps if (active_eps and it >= active_from and not rescore
-                                     and prev_conf is not None) else 0.0)
-            this_conf = state.conf
-            state = patchmatch.sweep(
-                state, data, opts, key, nV, is_geometric,
-                mode=mode, rescore_state=rescore,
-                n_perturb=n_pert, n_prop=8, fold=it + 1,
-                active_eps=eps_it, conf_prev=prev_conf,
-            )
-            prev_conf = None if rescore else this_conf
+                                     and have_prev) else 0.0)
+            pm.sweep(key, it + 1, mode, rescore, n_perturb=n_pert, n_prop=8,
+                     active_eps=eps_it)
+            have_prev = not rescore
             prev_mode = mode
+        state = pm.state
         state_dev = (state.depth, state.normal)
         result_state, result_cam = state, ref_cam
 
@@ -660,6 +665,7 @@ def dense_reconstruction(
     device="cuda",
     devices: Optional[list] = None,
     mesh=None,
+    _eager: bool = False,
 ) -> PointCloud:
     """Full dense pipeline: estimate all depth maps, filter, fuse.
 
@@ -677,7 +683,13 @@ def dense_reconstruction(
     PatchMatch estimation and the adjust cross-view filter through the
     sharded path (``parallel.sharded``: views over the rows of shards,
     image rows over the tiles with halo exchange), whose maps equal the
-    serial path's run without the adaptive early exit."""
+    serial path's run without the adaptive early exit.
+
+    On a card each view's sweeps run as CUDA graphs, captured once per
+    call and shape class and replayed over every view and pass
+    (``ops/graphs.py``); ``_eager`` launches them one by one instead, the
+    reference the graphs are checked against. The sharded path stays
+    eager."""
     dev = devmod.resolve(device)
     devices = [devmod.resolve(d) for d in devices] if devices else [dev]
     if abs(fusion_mode) == 1 and not save_dmaps_to:
@@ -737,6 +749,8 @@ def dense_reconstruction(
 
     use_sgm = opts.estimator == "sgm"
     use_sharded = mesh is not None and mesh.size > 1 and not use_sgm
+    runners = (graphs.Runners() if not _eager and any(d.type == "cuda" for d in devices)
+               else None)
     with profile_trace("densify"):
         if use_sharded:
             from openmvs_tpu_torch.parallel import sharded
@@ -760,7 +774,8 @@ def dense_reconstruction(
                                                           dimap_dir=save_dmaps_to, device=d)
             else:
                 est = lambda i, d: estimate_depth_map(scene, i, opts, defer_download=True,
-                                                      device=d)
+                                                      device=d, runners=runners,
+                                                      _eager=_eager)
             with timed(log, f"photometric pass ({len(todo)} views)"):
                 raw = _run_views_parallel(est, todo, devices)
             for i, r in raw.items():
@@ -779,7 +794,8 @@ def dense_reconstruction(
                     raw = _run_views_parallel(lambda i, d: estimate_depth_map(
                         scene, i, opts, prev=results[scene.images[i].meta.id],
                         neighbor_results=results, geometric_iter=gi,
-                        defer_download=True, device=d), have, devices)
+                        defer_download=True, device=d, runners=runners,
+                        _eager=_eager), have, devices)
                 # resumed views (and failed re-estimations) keep contributing
                 new_results: Dict[int, DepthMapResult] = dict(results)
                 for i, r in raw.items():

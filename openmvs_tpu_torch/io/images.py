@@ -359,6 +359,10 @@ def compute_max_resolution(width: int, height: int, level: int, min_res: int, ma
     return scaled
 
 
+def scale_for_max_dim(width: int, height: int, target_max_dim: int) -> float:
+    return float(target_max_dim) / float(max(width, height))
+
+
 def save_pfm(path: str, data: np.ndarray) -> None:
     """Write a single-channel PFM (little-endian, bottom-up row order as the
     PFM spec mandates; the reference's DepthMap::Save uses the same format)."""

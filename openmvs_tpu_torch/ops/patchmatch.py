@@ -37,10 +37,18 @@ the scorer skips their texel work and their pixels keep the incumbent.
 
 Randomness is the JAX package's, bit for bit: keys are derived on the host
 (``utils/rng.py``) and fields are position-anchored block hashes.
+
+Every function of a sweep can be captured in a CUDA graph and replayed
+(``ops/graphs.py``, densify's path on the card): nothing in it reads the
+host, a key may be a ``rng.KeyTable`` key read from a device tensor, and
+the host's bookkeeping of the work (launch and band counts, the
+``OMVS_GEOM_DEBUG`` line) goes through ``pm_kernel.host_effect``, which
+runs it after each replay.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import NamedTuple, Tuple
@@ -611,6 +619,17 @@ def _band_flags(state, data, conf_prev, parity, mode, eps):
     return torch.amax(churn.reshape(nb, -1), dim=1) > eps
 
 
+def _count_bands(scored: int, skipped) -> None:
+    with pm_kernel.COUNT_LOCK:
+        BANDS["scored"] += scored
+        if skipped is not None:
+            prev = BANDS["skipped"]
+            # kept on the first flags' device (worker threads may sweep on
+            # several devices)
+            BANDS["skipped"] = (prev + skipped.to(prev.device) if torch.is_tensor(prev)
+                                else prev + skipped)
+
+
 def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
                   mode, geom_terms=None, band_act=None):
     """Score a candidate stack and take per-parity winners vs the incumbent
@@ -629,14 +648,7 @@ def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
     if band_act is not None:
         take = take & pm_kernel.band_rows(band_act, take.shape[0])[:, None]
         skipped = (~band_act).sum()
-    with pm_kernel.COUNT_LOCK:
-        BANDS["scored"] += nb
-        if skipped is not None:
-            prev = BANDS["skipped"]
-            # kept on the first flags' device (worker threads may sweep on
-            # several devices)
-            BANDS["skipped"] = (prev + skipped.to(prev.device) if torch.is_tensor(prev)
-                                else prev + skipped)
+    pm_kernel.host_effect(functools.partial(_count_bands, nb, skipped))
     return PMState(
         depth=torch.where(take, d_best, state.depth),
         normal=torch.where(take[..., None], n_best, state.normal),
@@ -661,7 +673,8 @@ def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor) -> torch.
     """(V, C, H, W) geometric terms of candidate depths ``depth_c`` against
     the first ``n_views`` neighbours, from one launch of K3-mv (the plain
     version on CPU tensors). ``OMVS_GEOM_DEBUG`` prints each call's
-    comparison with the plain version."""
+    comparison with the plain version (after the device work, at each
+    replay where the call is captured)."""
     v = data.views
     depth_c = depth_c.contiguous()
     out = pm_kernel.geom_terms(
@@ -673,11 +686,15 @@ def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor) -> torch.
                             v.Tm[j], v.Tr[j], v.Tn[j], force_xla=True)
             for j in range(n_views)])
         d = torch.abs(out - ref)
-        n_bad = int((d > 0.1).sum())
-        print(f"[geom-debug] C={depth_c.shape[0]} V={n_views} "
-              f"frac>{0.1}: {n_bad / d.numel():.4f}  mean|d|={float(d.mean()):.4f} "
-              f"max|d|={float(d.max()):.3f}", flush=True)
+        pm_kernel.host_effect(functools.partial(
+            _print_geom_debug, depth_c.shape[0], n_views, d.numel(),
+            (d > 0.1).sum(), d.mean(), d.max()))
     return out
+
+
+def _print_geom_debug(C, V, n, n_bad, mean, d_max) -> None:
+    print(f"[geom-debug] C={C} V={V} frac>{0.1}: {int(n_bad) / n:.4f}  "
+          f"mean|d|={float(mean):.4f} max|d|={float(d_max):.3f}", flush=True)
 
 
 def _select_candidates(state, data, opts, cd, cn, cok, geom, parity, n_views,

@@ -42,12 +42,16 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; each launch adds one to its entry of
 ``LAUNCHES`` (one per kernel and sampling mode, and for ``score_views`` per
 geometric mode: none, ``geom`` fused, ``pre`` precomputed; launches with
-band flags count under ``score_views_act*``).
+band flags count under ``score_views_act*``). A launch made while a CUDA
+graph is captured counts nothing then: the graph's replays count it
+(``host_effect``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 import threading
 from typing import Tuple
@@ -86,10 +90,43 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``."""
+def _add_launch(name: str) -> None:
     with COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``, now or at each replay of the graph
+    being captured (``host_effect``)."""
+    host_effect(functools.partial(_add_launch, name))
+
+
+# per thread: the host effects of the CUDA graph this thread captures
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capturing(effects: list):
+    """Within the block, in this thread, ``host_effect`` appends to
+    ``effects`` instead of running: the capture of a CUDA graph, whose
+    replays then run ``effects``."""
+    prev = getattr(_capture, "effects", None)
+    _capture.effects = effects
+    try:
+        yield
+    finally:
+        _capture.effects = prev
+
+
+def host_effect(fn) -> None:
+    """Run ``fn``, host bookkeeping of device work (a launch count, a band
+    count, a debug print): now, or, while this thread captures a CUDA
+    graph, after each replay of that graph."""
+    effects = getattr(_capture, "effects", None)
+    if effects is None:
+        fn()
+    else:
+        effects.append(fn)
 
 
 # ------------------------------------------------------------- plain versions

@@ -168,3 +168,50 @@ def test_cli_dump_prints_the_jax_summary(dense, capsys):
     port = capsys.readouterr().out
     jax_main(["dump"] + files)
     assert port == capsys.readouterr().out and "3 images" in port
+
+
+def _scripts():
+    """``[project.scripts]`` of pyproject.toml as {name: (module, function)}."""
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return {name: tuple(target.split(":")) for name, target in scripts.items()}
+
+
+def test_console_entry_points_match_jax(monkeypatch):
+    """Each ``omvs-*`` script of the JAX package has an ``omvs-torch-*``
+    twin naming the same function of ``openmvs_tpu_torch.apps``, the two
+    ``apps`` modules define the same entry points, and each pair hands its
+    CLI the same argument list."""
+    import importlib
+
+    import openmvs_tpu.__main__ as jax_cli
+    import openmvs_tpu_torch.__main__ as port_cli
+    from openmvs_tpu import apps as jax_apps
+    from openmvs_tpu.io import images as jax_images
+    from openmvs_tpu_torch import apps
+    from openmvs_tpu_torch.io import images
+
+    scripts = _scripts()
+    jax_scripts = {n: t for n, t in scripts.items() if t[0] == "openmvs_tpu.apps"}
+    port_scripts = {n: t for n, t in scripts.items() if t[0] == "openmvs_tpu_torch.apps"}
+    assert len(jax_scripts) == 6
+    assert {n.replace("omvs-", "omvs-torch-", 1): f for n, (_, f) in jax_scripts.items()} \
+        == {n: f for n, (_, f) in port_scripts.items()}
+
+    def entry_points(mod):
+        return sorted(n for n, v in vars(mod).items()
+                      if callable(v) and not n.startswith("_") and v.__module__ == mod.__name__)
+
+    assert entry_points(apps) == entry_points(jax_apps)
+    monkeypatch.setattr("sys.argv", ["prog", "scene.mvs", "-o", "out.mvs"])
+    for _, (mod, fn) in port_scripts.items():
+        got = {}
+        for cli, package in ((port_cli, apps), (jax_cli, jax_apps)):
+            monkeypatch.setattr(cli, "main", lambda argv, c=cli: got.__setitem__(c, argv))
+            getattr(importlib.import_module(package.__name__), fn)()
+        assert got[port_cli] == got[jax_cli] and got[port_cli][1:] == ["scene.mvs", "-o", "out.mvs"]
+    for w, h, m in ((640, 480, 320), (1000, 1500, 777), (7, 3, 5)):
+        assert images.scale_for_max_dim(w, h, m) == jax_images.scale_for_max_dim(w, h, m)

@@ -21,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(openmvs_tpu_torch.__path__,
 # the file-loading slice (scenes, images, importers, the CLI), the
 # real-SfM-input slice (undistortion, the other importers, the geometry of
 # the scene transforms, splitting, evaluation), the project archives,
-# logging and safety hooks and viewers, and the multi-device paths
+# logging and safety hooks and viewers, the multi-device paths, and the
+# sweep runner
 need = {"openmvs_tpu_torch." + n for n in (
     "__main__", "apps", "tower", "interfaces", "interfaces.colmap",
     "interfaces.openmvg", "io.mvs", "io.images", "io.png", "io.gltf", "io.sml",
@@ -29,13 +30,14 @@ need = {"openmvs_tpu_torch." + n for n in (
     "interfaces.polycam", "interfaces.mvsnet", "geometry.robust", "geometry.lm",
     "geometry.similarity", "utils.octree", "split", "eval", "datasets",
     "io.boost_archive", "utils.log", "utils.safety", "viewer", "viewer_web",
-    "parallel", "parallel.mesh", "parallel.sharded", "parallel.sharded_filter")}
+    "parallel", "parallel.mesh", "parallel.sharded", "parallel.sharded_filter",
+    "ops.graphs")}
 for n in names:
     importlib.import_module(n)
 bad = [k for k in ("jax", "cv2", "PIL", "openmvs_tpu") if k in sys.modules]
 bad += [k for k in sys.modules if k.startswith(("jax.", "cv2.", "PIL.", "openmvs_tpu."))]
 print(len(names), bad, sorted(need - set(names)))
-sys.exit(1 if bad or len(names) < 63 or need - set(names) else 0)
+sys.exit(1 if bad or len(names) < 64 or need - set(names) else 0)
 """
 
 
@@ -43,7 +45,8 @@ def test_port_imports_no_jax_cv2_or_reference_package():
     """Every module of the port, the meshing, mesh operations and mesh
     formats, the scene and image loaders, the project archives, the
     importers with the image undistortion, the transforms, splitting,
-    evaluation, the viewers, the CLI and the multi-device paths included,
+    evaluation, the viewers, the CLI, the multi-device paths and the sweep
+    runner included,
     imports neither jax, OpenCV, PIL nor the JAX package (PIL
     only when a file other than PNG or SCI is read or written,
     tests/test_torch_image_load.py)."""
