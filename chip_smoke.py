@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's PatchMatch densify (serial and sharded), mesh
-refinement, mesh texturing and SGM densify paths, the whole chain densify
+refinement (its iterations as CUDA graphs), mesh texturing and SGM densify
+paths, the whole chain densify
 -> mesh -> clean -> refine -> texture -> save, the same chain from files
 through the port's CLI, a distorted SfM model imported, undistorted, densified,
 evaluated, transformed and split, the reference's project archives, and
@@ -82,14 +83,24 @@ Phases, each printing one JSON line:
                   against phase parity's card maps
  10. refine     - refine.refine_mesh(scene, mesh, RefineOptions()) on the
                   card for the 5-view 640x480 scene and the height field's
-                  150-grid (44,402 faces) with z-noise N(0, 0.05): seconds
-                  per call and scale, pairs, refreshes, host seconds, peak
-                  memory, mean height error before and after (held to 0.85x
-                  its start and 1.05x the JAX package's); CUDA-event ms of
-                  one full-scale iteration; torch.profiler over one
-                  full-scale refresh block; card against CPU on the tests'
-                  small case and for one full-scale _energy_grad. Plain
-                  PyTorch: the JAX package reaches no Pallas kernel here
+                  150-grid (44,402 faces) with z-noise N(0, 0.05), its
+                  iterations replayed from CUDA graphs (refine.IterProgram):
+                  seconds per call and scale, pairs, refreshes, host
+                  seconds, peak memory, captures, their seconds, replays and
+                  pool bytes, segment_sum launches, mean height error before
+                  and after (held to 0.85x its start and 1.05x the JAX
+                  package's); the same call with _eager=True (seconds;
+                  vertices equal to the bit); CUDA-event ms of one
+                  full-scale iteration eager and replayed; torch.profiler
+                  over one full-scale refresh block eager and graphed
+                  (launches and replays per iteration, busy share); the
+                  segment sums of one full-scale iteration through the
+                  segment_sum kernel against its plain version on the card
+                  and _segment_sum's CPU form, bit for bit, with ms (graph
+                  replay, eager, with the sort), plain ms,
+                  torch.segment_reduce's ms and the bound; card against CPU
+                  on the tests' small case and for one full-scale
+                  _energy_grad
  11. texture    - texture.texture_mesh(scene, mesh, TextureOptions()) with
                   LBP labeling on the card, for the same scene (with its
                   colors, which only this phase reads) and the height
@@ -121,11 +132,14 @@ Phases, each printing one JSON line:
                   -2 resumes to the same cloud (and, with the .dmap files
                   gone, re-projects the .dimap files without matching: their
                   1/4-pixel disparities give a smaller cloud, as in the JAX
-                  package); one
+                  package); sgm_scan launches over the call; one
                   full-width pair's disparities and costs on the card equal
                   the CPU's; torch.profiler over that pair: launches per
-                  aggregate8 and the device-busy share. Plain PyTorch: the
-                  JAX SGM reaches no Pallas kernel
+                  aggregate8 and the device-busy share; sgm_scan against
+                  _scan_passes_plain on the card, bit for bit with signed
+                  zeros, for the horizontal, vertical and diagonal batches
+                  of that pair's finest aggregate8 and for aggregate's two,
+                  with ms (graph replay and eager), plain ms and the bound
  13. pipeline   - phase densify's cloud through the rest of the chain:
                   reconstruct.reconstruct_mesh(scene, MeshOptions()) on the
                   host (points before and after dedup, tets, raw faces,
@@ -219,8 +233,9 @@ Phases, each printing one JSON line:
                   OMVS_PROFILE_DIR writing a trace; dump -o of a .dmap of
                   phase project; render_mesh and export_html of phase
                   pipeline's textured mesh
-Each of phases 4, 5, 5b, 7, 9, 12, 14, 15, 16 and 17 sets the launch counts
-to 0 just before the path it drives and reads them just after. Then the {"kernels": [...]} line
+Each of phases 4, 5, 5b, 7, 9, 10, 12, 14, 15, 16 and 17 sets the launch
+counts to 0 just before the path it drives and reads them just after (10
+the segment_sum count, 12 the sgm_scan count beside the PatchMatch ones). Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -450,6 +465,11 @@ KERNEL_LINE = (
      "switches_exact"),
     ("score_views_geom_act_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:979",
      "sweeps"),
+    # the jitted programs' kernels: the SGM scans of aggregate8, the ordered
+    # segment sums of refine's _device_iter (rows of one aggregate8 call and
+    # of one iteration, phases sgm and refine)
+    ("sgm_scan", "sgm_scan.cu", "openmvs_tpu/ops/sgm.py:519", "sgm"),
+    ("segment_sum", "segment_sum.cu", "openmvs_tpu/refine.py:531", "refine"),
 )
 
 
@@ -1113,16 +1133,12 @@ def _graph_runners():
 def _graph_summary(runners_list):
     """Captures, their seconds, replays and the graph pools' bytes (the
     card's segments of each runner's pool) of graphs.Runners objects."""
-    import torch
-
     runners = [r for rs in runners_list for r in rs.all()]
-    pools = {r.pool for r in runners}
-    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                     if tuple(seg.get("segment_pool_id", ())) in pools)
     return {"runners": len(runners), "captures": sum(r.captures for r in runners),
             "capture_s": sum(r.capture_s for r in runners),
             "replays": sum(r.replays for r in runners),
-            "classes": sum(r.n_classes for r in runners), "pool_bytes": pool_bytes}
+            "classes": sum(r.n_classes for r in runners),
+            "pool_bytes": sum(r.pool_bytes() for r in runners)}
 
 
 def _run_densify(scene, device="cuda", env=None, eager=False):
@@ -1631,37 +1647,148 @@ class _FullScale:
 
 def _profile_refresh(fs, dev):
     """One full-scale refresh block as _refine_at_scale runs it (download,
-    rasterize, upload, 8 iterations, the energy read), once unprofiled and
-    once under torch.profiler: launches per iteration, device-busy share
-    of the unprofiled wall, the top 10 device kernels."""
+    rasterize, upload, 8 iterations, the energy read), eager
+    (_device_iter) and graphed (refine.IterProgram, captured by an earlier
+    block), each once unprofiled and once under torch.profiler: per
+    iteration the kernels run on the device, the host's kernel launches and
+    graph replays; the device-busy share of the unprofiled wall, the top 10
+    device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from openmvs_tpu_torch import refine
+    from openmvs_tpu_torch.ops import graphs
 
     _, mt, (step0, med, reg_w, ratio), statics = fs.on(dev)
+    prog = refine.IterProgram(graphs.Runner(dev), mt, statics, step0, med, reg_w,
+                              refine.RERASTER)
 
-    def block():
+    def block(graphed):
         t0 = time.perf_counter()
-        v = mt.verts
-        r = refine.to_device(fs.rasters(v.cpu().numpy()), dev)
-        p = refine._assemble_pair_data(statics, r, mt.faces)
-        for k in range(refine.RERASTER):
-            v, e = refine._device_iter(v, k, p, mt.adj, mt.deg, mt.faces, step0,
-                                       med, reg_w, mt.boundary, ratio)
+        if graphed:
+            r = refine.to_device(fs.rasters(prog.v.cpu().numpy()), dev)
+            prog.refresh(r, fs.scalars[3], 0)
+            for _ in range(refine.RERASTER):
+                prog.step()
+            e = prog.e
+        else:
+            v = mt.verts
+            r = refine.to_device(fs.rasters(v.cpu().numpy()), dev)
+            p = refine._assemble_pair_data(statics, r, mt.faces)
+            for k in range(refine.RERASTER):
+                v, e = refine._device_iter(v, k, p, mt.adj, mt.deg, mt.faces, step0,
+                                           med, reg_w, mt.boundary, ratio)
         float(e)
         return time.perf_counter() - t0
 
-    block()
-    wall = block()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_profiled = block()
-    dev = _device_summary(prof, 10)
-    return {"block_wall_s": wall, "block_wall_profiled_s": wall_profiled,
-            "iterations": refine.RERASTER,
-            "kernel_launches_per_iteration": dev["launches"] / refine.RERASTER,
-            "copies": dev["copies"], "device_busy_s": dev["busy_s"],
-            "device_busy_share": min(dev["busy_s"] / wall, 1.0),
-            "top10_kernels": dev["top"]}
+    out = {}
+    for name in ("eager", "graphed"):
+        block(name == "graphed")
+        wall = block(name == "graphed")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = block(name == "graphed")
+        d = _device_summary(prof, 10)
+        api = _host_calls(prof)
+        n = refine.RERASTER
+        out[name] = {"block_wall_s": wall, "block_wall_profiled_s": wall_profiled,
+                     "iterations": n, "kernels_run_per_iteration": d["launches"] / n,
+                     "host_kernel_launches_per_iteration":
+                         sum(api.get(k, 0) for k in LAUNCH_APIS) / n,
+                     "graph_replays_per_iteration": api.get("cudaGraphLaunch", 0) / n,
+                     "copies": d["copies"], "device_busy_s": d["busy_s"],
+                     "device_busy_share": min(d["busy_s"] / wall, 1.0),
+                     "top10_kernels": d["top"]}
+    return out
+
+
+def _graphed_iter_ms(fs, dev):
+    """CUDA-event ms of one full-scale iteration replayed from its CUDA
+    graph (refine.IterProgram; its first, eager step and the capture
+    before the timed replays)."""
+    from openmvs_tpu_torch import refine
+    from openmvs_tpu_torch.ops import graphs
+
+    _, mt, (step0, med, reg_w, _), statics = fs.on(dev)
+    prog = refine.IterProgram(graphs.Runner(dev), mt, statics, step0, med, reg_w, 16)
+    prog.refresh(refine.to_device(fs.rasters(fs.v), dev), fs.scalars[3], 0)
+    prog.step()
+    return cuda_ms(prog.step, 5)
+
+
+def _segment_sum_rows(card, fs, dev):
+    """The segment sums of one full-scale _energy_grad on the card (the
+    pixels into faces, the faces' support into vertices, the faces into
+    vertices, the face normals into vertices): each through the kernel
+    against its plain version on the card and against _segment_sum's CPU
+    form (the definition: each segment folded from 0 in row order), bit
+    for bit; CUDA-event ms of the kernel (graph replay, and eager), of the
+    kernel with its sort and offsets, of the plain version and of one
+    torch.segment_reduce over the gathered rows (the library column), and
+    the bytes bound: the rows the kernel sums (those of segments 0 to
+    n - 1; rows at index n, the pixels with no face, are left out and not
+    read), their order entries, the offsets and the output, each moved
+    once. Returns the records and their sum (one iteration)."""
+    import torch
+
+    from openmvs_tpu_torch import refine
+    from openmvs_tpu_torch.ops import segment
+
+    pds, mt, (step0, med, reg_w, ratio), _ = fs.on(dev)
+    calls = []
+    seg = refine._segment_sum
+
+    def recorded(index, src, n):
+        calls.append((index, src.contiguous(), n))
+        return seg(index, src, n)
+
+    refine._segment_sum = recorded
+    try:
+        refine._energy_grad(mt.verts, pds, mt.adj, mt.deg, mt.faces, step0, med, reg_w,
+                            mt.boundary, ratio)
+    finally:
+        refine._segment_sum = seg
+
+    def bits(t):
+        return t.cpu().contiguous().view(torch.int32)
+
+    recs = []
+    for index, src, n in calls:
+        order, offsets = segment.segments(index, n)
+        got = segment.segment_sum(order, offsets, src)
+        plain = segment.segment_sum_plain(order, offsets, src)
+        want = seg(index.cpu(), src.cpu(), n)
+        gathered = src.index_select(0, order)
+        lengths = offsets[1:] - offsets[:-1]
+        R, K = src.shape[0], src[0].numel()
+        summed = int(offsets[n] - offsets[0])
+        nbytes = summed * (K * 4 + 8) + (n + 1) * 8 + n * K * 4
+        rec = {"phase": "refine", "kernel": "segment_sum", "rows": R,
+               "left_out_rows": R - summed, "segments": n,
+               "columns": K, "longest_segment": int(lengths.max()),
+               "empty_segments": int((lengths == 0).sum()),
+               "equal_cpu_form": bool(torch.equal(bits(got), bits(want))),
+               "equal_card_plain": bool(torch.equal(bits(got), bits(plain))),
+               "max_abs_err": float((got.cpu() - want).abs().max()),
+               "ms": cuda_ms(lambda: segment.segment_sum(order, offsets, src), 20,
+                             graph=True),
+               "eager_ms": cuda_ms(lambda: segment.segment_sum(order, offsets, src), 20),
+               "with_order_ms": cuda_ms(lambda: segment.segment_sum(
+                   *segment.segments(index, n), src), 10, graph=True),
+               "plain_ms": cuda_ms(lambda: segment.segment_sum_plain(order, offsets, src),
+                                   5),
+               "library_ms": cuda_ms(lambda: torch.segment_reduce(
+                   gathered, "sum", offsets=offsets, axis=0, unsafe=True), 5),
+               "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+               "bound_by": "bytes", "card": card}
+        emit(rec)
+        recs.append(rec)
+    if not all(r["equal_cpu_form"] and r["equal_card_plain"] for r in recs):
+        raise RuntimeError("segment_sum differs from its plain version or from "
+                           "_segment_sum's CPU form")
+    total = {k: sum(r[k] for r in recs)
+             for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
+    total.update(bound_by="bytes", max_abs_err=max(r["max_abs_err"] for r in recs),
+                 calls=len(recs), left_out_rows=sum(r["left_out_rows"] for r in recs))
+    return recs, total
 
 
 def _refine_card_vs_cpu():
@@ -1697,14 +1824,19 @@ def _refine_card_vs_cpu():
 
 def phase_refine(card, scene):
     """Mesh refinement on the card: the full-size workload through
-    refine_mesh, one full-scale iteration timed and one refresh block
-    profiled, and the card against the CPU."""
+    refine_mesh (its iterations replayed from CUDA graphs, with the
+    segment_sum launches counted from 0 over the call) and again with
+    _eager=True (vertices equal to the bit), one full-scale iteration timed
+    both ways, one refresh block profiled both ways, the segment sums of
+    one iteration against their plain version, and the card against the
+    CPU. Returns (the kernels line's segment_sum row, its launches)."""
     import numpy as np
     import torch
 
     from openmvs_tpu_torch import refine
     from openmvs_tpu_torch.config import RefineOptions
     from openmvs_tpu_torch.convert import mesh_from_numpy
+    from openmvs_tpu_torch.ops import pm_kernel, segment
 
     from openmvs_tpu_torch import native
 
@@ -1717,20 +1849,33 @@ def phase_refine(card, scene):
     stats = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    pm_kernel.reset_launches()
     t0 = time.perf_counter()
     out = refine.refine_mesh(scene, mesh_from_numpy(v0, gt.faces), RefineOptions(),
                              device="cuda", stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(pm_kernel.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     err1 = _height_error(out.vertices)
+    stats_e = {}
+    t0 = time.perf_counter()
+    out_e = refine.refine_mesh(scene, mesh_from_numpy(v0, gt.faces), RefineOptions(),
+                               device="cuda", stats=stats_e, _eager=True)
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    same = bool(np.array_equal(np.asarray(out.faces), np.asarray(out_e.faces))
+                and np.array_equal(np.asarray(out.vertices, np.float32).view(np.int32),
+                                   np.asarray(out_e.vertices, np.float32).view(np.int32)))
 
     fs = _FullScale(scene, v0, gt.faces)
     pds, mt, (step0, med, reg_w, ratio), _ = fs.on(dev)
     iter_ms = cuda_ms(lambda: refine._device_iter(
         mt.verts, 0, pds, mt.adj, mt.deg, mt.faces, step0, med, reg_w,
         mt.boundary, ratio), 5)
+    graphed_iter_ms = _graphed_iter_ms(fs, dev)
     prof = _profile_refresh(fs, dev)
+    seg_recs, seg_row = _segment_sum_rows(card, fs, dev)
     e_card, g_card = refine._energy_grad(mt.verts, pds, mt.adj, mt.deg, mt.faces,
                                          step0, med, reg_w, mt.boundary, ratio)
     pds_c, mt_c, sc_c, _ = fs.on(torch.device("cpu"))
@@ -1750,8 +1895,12 @@ def phase_refine(card, scene):
            "height_error_before": err0, "height_error_after": err1,
            "jax_height_error_after": JAX_REFINE_HEIGHT_ERROR,
            "full_scale_faces": len(fs.faces), "full_scale_pairs": len(fs.pairs),
-           "full_scale_host_s": fs.host_s,
-           "device_iter_ms": iter_ms, "profile_refresh_block": prof,
+           "full_scale_host_s": fs.host_s, "graphs": stats["graphs"],
+           "segment_sum_launches": launches["segment_sum"],
+           "eager_wall_s": wall_e, "eager_scales": stats_e["scales"],
+           "vertices_equal_eager": same,
+           "device_iter_ms": iter_ms, "graphed_device_iter_ms": graphed_iter_ms,
+           "segment_sum_iteration": seg_row, "profile_refresh_block": prof,
            "energy_grad_card_vs_cpu": {
                "energy": [float(e_card), float(e_cpu)],
                "max_abs_diff": float(np.abs(g_card - g_cpu).max()),
@@ -1775,6 +1924,14 @@ def phase_refine(card, scene):
     if rms_diff >= 1e-4 or worst >= 5e-3:
         raise RuntimeError(f"refine_mesh card vs CPU: rms difference {rms_diff}, "
                            f"largest vertex difference {worst}")
+    if not same:
+        raise RuntimeError("graphed refine_mesh differs from the eager run")
+    g = stats["graphs"]
+    if not (g["captures"] and g["replays"] and launches["segment_sum"]):
+        raise RuntimeError(f"refine_mesh: {g} and {launches} (no graph or no kernel)")
+    if prof["graphed"]["graph_replays_per_iteration"] != 1:
+        raise RuntimeError(f"graphed refresh block: {prof['graphed']}")
+    return seg_row, launches
 
 
 def _color_fidelity(mesh, labels, images):
@@ -2058,7 +2215,7 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     """dense_reconstruction(scene, opts, save_dmaps_to=folder) on the card
     with the launch counts set to 0 just before and read just after, and
     every match_pair_tsgm call recorded: (cloud, wall s, stage s, per-pair
-    records with their levels, launches)."""
+    records with their levels, kernel launches)."""
     import torch
 
     from openmvs_tpu_torch import densify
@@ -2163,6 +2320,77 @@ def _profile_sgm_pair(rectA, rectB, d_lo, d_hi):
             "top10_kernels": dev["top"]}
 
 
+def _sgm_scan_rows(card, rectA, rectB, d_lo, d_hi):
+    """sgm_scan at a full-width pair's shapes: the DP batches of the last
+    (finest) aggregate8 call of match_pair_tsgm on the card (horizontal,
+    vertical, diagonal) and of aggregate over that level's left volume as
+    floats (horizontal, vertical), each through the kernel against
+    _scan_passes_plain on the card, bit for bit (int32 views: signed zeros
+    count); CUDA-event ms of the kernel (graph replay, and eager) and of
+    the plain loop, and the bound. Returns the records and the kernels
+    line's row: aggregate8's three batches summed (one call)."""
+    import torch
+
+    from openmvs_tpu_torch.ops import sgm
+
+    last = []
+    agg8 = sgm.aggregate8
+
+    def recorded(*a, **kw):
+        last[:] = [(a, kw)]
+        return agg8(*a, **kw)
+
+    sgm.aggregate8 = recorded
+    try:
+        sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda")
+    finally:
+        sgm.aggregate8 = agg8
+    (vol, imgs, *rest), kw = last[0]
+    batches = []
+    scan = sgm._scan_passes
+
+    def kept(xs, p2s, p1, shift, diag):
+        batches.append((xs.contiguous(), p2s.contiguous(), p1, shift, diag))
+        return scan(xs, p2s, p1, shift, diag)
+
+    sgm._scan_passes = kept
+    try:
+        agg8(vol, imgs, *rest, **kw)
+        sgm.aggregate(vol[0].to(torch.float32) / 255.0, imgs[0], p1=0.1, p2=0.8, alpha=2.0)
+    finally:
+        sgm._scan_passes = scan
+    names = ("aggregate8_horizontal", "aggregate8_vertical", "aggregate8_diagonal",
+             "aggregate_horizontal", "aggregate_vertical")
+    recs = []
+    for name, (xs, p2s, p1, shift, diag) in zip(names, batches):
+        got = sgm.sgm_scan(xs, p2s, p1, shift, diag)
+        want = sgm._scan_passes_plain(xs, p2s, p1, shift, diag)
+        torch.cuda.synchronize()
+        nbytes = (2 * xs.numel() + p2s.numel()) * 4
+        flops = 8 * xs.numel()  # per cell: the min, two mins and adds, the sub
+        rec = {"phase": "sgm", "kernel": "sgm_scan", "batch": name,
+               "shape": list(xs.shape), "shift": shift, "diag": bool(diag),
+               "bit_equal": bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+               "max_abs_err": float((got - want).abs().max()),
+               "ms": cuda_ms(lambda: sgm.sgm_scan(xs, p2s, p1, shift, diag), 20, graph=True),
+               "eager_ms": cuda_ms(lambda: sgm.sgm_scan(xs, p2s, p1, shift, diag), 20),
+               "plain_ms": cuda_ms(lambda: sgm._scan_passes_plain(xs, p2s, p1, shift, diag),
+                                   2),
+               "bytes": nbytes, "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32 else "operations",
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes an SGM directional pass",
+               "card": card}
+        emit(rec)
+        recs.append(rec)
+    if len(recs) != len(names) or not all(r["bit_equal"] for r in recs):
+        raise RuntimeError("sgm_scan differs from _scan_passes_plain")
+    row = {k: sum(r[k] for r in recs[:3]) for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
+    row.update(bound_by="bytes", library_ms=None, batches=3,
+               max_abs_err=max(r["max_abs_err"] for r in recs))
+    return recs, row
+
+
 def phase_sgm(card, scene, gts):
     """The SGM estimator on the card: dense_reconstruction with
     DenseOptions(estimator="sgm") at full width, its quality against the
@@ -2187,7 +2415,8 @@ def phase_sgm(card, scene, gts):
     est_s = sum(v for k, v in stages.items() if k.startswith("photometric pass"))
 
     with tempfile.TemporaryDirectory() as tmp:
-        pc_x, wall_x, _, pairs_x, _ = _sgm_dense(scene, DenseOptions(), tmp, fusion_mode=-1)
+        pc_x, wall_x, _, pairs_x, _ = _sgm_dense(scene, DenseOptions(), tmp,
+                                                    fusion_mode=-1)
         dimaps = sorted(f for f in os.listdir(tmp) if f.endswith(".dimap"))
         pc_r, wall_r, _, pairs_r, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
         for f in os.listdir(tmp):
@@ -2216,6 +2445,7 @@ def phase_sgm(card, scene, gts):
               "d_range": [d_lo, d_hi], "levels": levels, "cpu_s": cpu_s,
               "cpu_threads": torch.get_num_threads()}
     prof = _profile_sgm_pair(rectA, rectB, d_lo, d_hi)
+    _, scan_row = _sgm_scan_rows(card, rectA, rectB, d_lo, d_hi)
 
     H, W = scene.images[0].gray.shape
     rec = {"phase": "sgm", "views": n, "H": H, "W": W,
@@ -2229,7 +2459,8 @@ def phase_sgm(card, scene, gts):
            "level_s": [[lv["seconds"] for lv in p["levels"]] for p in pairs],
            "level_hw_num_d": [[lv["hw"] + [lv["num_d"]] for lv in p["levels"]]
                               for p in pairs],
-           "max_memory_allocated_bytes": peak, "pm_kernel_launches": launches,
+           "max_memory_allocated_bytes": peak, "kernel_launches": launches,
+           "sgm_scan_launches": launches["sgm_scan"], "sgm_scan_aggregate8": scan_row,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
            "jax_accuracy": JAX_SGM_ACCURACY, "jax_completeness": JAX_SGM_COMPLETENESS,
            "export_resume": export, "pair_card_vs_cpu": vs_cpu, "pair_profile": prof,
@@ -2237,7 +2468,7 @@ def phase_sgm(card, scene, gts):
     emit(rec)
     if len(pc) == 0 or len(maps) != n:
         raise RuntimeError(f"SGM densify gave {len(maps)} maps and {len(pc)} points")
-    if any(launches.values()):
+    if any(n for k, n in launches.items() if k != "sgm_scan"):
         raise RuntimeError(f"the SGM path launched PatchMatch kernels: {launches}")
     for i, (acc, comp) in enumerate(q):
         if acc < 0.95 * JAX_SGM_ACCURACY[i] or comp < 0.95 * JAX_SGM_COMPLETENESS[i]:
@@ -2252,6 +2483,9 @@ def phase_sgm(card, scene, gts):
         raise RuntimeError(f"SGM export/resume failed: {export}")
     if not (vs_cpu["disparity_equal"] and vs_cpu["cost_equal"]):
         raise RuntimeError("SGM pair: card and CPU disparities or costs differ")
+    if not launches["sgm_scan"]:
+        raise RuntimeError("the SGM path launched no sgm_scan")
+    return scan_row, launches
 
 
 def _reconstruct(scene, pc):
@@ -3677,9 +3911,9 @@ def main():
     launches["geom_split"] = phase_geom_split(card, scene, gts, maps,
                                               launches["densify"])
     phase_geom_unfused(card, phase_parity(card))
-    phase_refine(card, scene)
+    rows["segment_sum"], launches["refine"] = phase_refine(card, scene)
     phase_texture(card, colored)
-    phase_sgm(card, scene, gts)
+    rows["sgm_scan"], launches["sgm"] = phase_sgm(card, scene, gts)
     textured = phase_pipeline(card, scene, colored, dense)
     with tempfile.TemporaryDirectory() as folder:
         files = phase_files(card, folder)
@@ -3690,14 +3924,14 @@ def main():
     phase_imports(card, files["error"])
     kernels = []
     for name, source, replaces, path in KERNEL_LINE:
-        r = rows[(name, 11)]
+        r = rows[name] if name in rows else rows[(name, 11)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"openmvs_tpu_torch/csrc/{source}", "replaces": replaces,
             "path": path, "launches": launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_TEXELS = 128
 MAX_VIEWS = 12  # DenseOptions.max_views: the multi-view kernels' limit
 V2_MAX_TEXELS = 96  # K1-v2 stages the tile's weights of at most this many texels
+SGM_MAX_D = 256  # sgm_scan keeps at most this many disparities in a warp's registers
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every exported function, by library (source stem)
 SIGNATURES = {
     "pm_score": {
@@ -98,6 +99,22 @@ SIGNATURES = {
             P,                  # stream
         ],
         "pm_geom_views_max_views": [],
+    },
+    "sgm_scan": {
+        "sgm_scan_launch": [
+            P, P, P,            # xs (B, N, M, D), p2s (B, N, M), out
+            I, I, I, I,         # B, N, M, D
+            F, I, I,            # p1, shift, diag
+            P,                  # stream
+        ],
+        "sgm_scan_max_d": [],
+    },
+    "segment_sum": {
+        "segment_sum_launch": [
+            P, P, P, P,         # order (R,), offsets (n + 1,), src (R, K), out (n, K)
+            L, I,               # n, K
+            P,                  # stream
+        ],
     },
 }
 RESTYPES = {"pm_error_string": ctypes.c_char_p}
@@ -193,10 +210,12 @@ def _load(name: str) -> ctypes.CDLL:
     limits = {"pm_score": ("pm_max_texels", MAX_TEXELS),
               "pm_score_views": ("pm_views_max_views", MAX_VIEWS),
               "pm_geom_views": ("pm_geom_views_max_views", MAX_VIEWS),
-              "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS)}
-    fn, want = limits[name]
-    if getattr(lib, fn)() != want:
-        raise RuntimeError(f"{name} library and wrapper disagree on {fn}")
+              "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS),
+              "sgm_scan": ("sgm_scan_max_d", SGM_MAX_D)}
+    if name in limits:
+        fn, want = limits[name]
+        if getattr(lib, fn)() != want:
+            raise RuntimeError(f"{name} library and wrapper disagree on {fn}")
     return lib
 
 

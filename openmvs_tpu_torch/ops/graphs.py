@@ -33,9 +33,14 @@ A ``Runner`` (one device, one thread) owns:
   ``min_sweeps`` on, deciding in float32 as the JAX loop condition does.
 
 Each program's outputs are either static buffers or read before the next
-replay, so programs may share one memory pool. On the CPU a runner runs
-each program's body directly on the same static buffers (its CPU form,
-which the tests hold against the eager functions).
+replay, so programs may share one memory pool; the runner keeps every
+graph it captured until it goes. On the CPU a runner runs each program's
+body directly on the same static buffers (its CPU form, which the tests
+hold against the eager functions).
+
+Refinement's iteration (``refine.IterProgram``) is the runner's second
+user: it keeps its own buffers and captures through ``capture`` and
+``replay``.
 
 Threads: ``Runners`` gives each (thread, device) its own runner, so worker
 threads share no buffer and no pool. Captures hold a process-wide lock and
@@ -158,6 +163,10 @@ class Runner:
         self.capture_s = 0.0
         self.replays = 0
         self.pool = None
+        # every graph captured, kept until the runner goes: PyTorch refuses
+        # a capture into a shared pool once all of its graphs have died
+        # while a block of it is still held
+        self._graphs = []
         if self.device.type == "cuda":
             # a library loads (and builds) on first use, never under capture
             _build.load_all()
@@ -192,17 +201,31 @@ class Runner:
         if prog is None:
             prog = self._programs[pkey] = _Program(self.device, make_body)
             if self.device.type == "cuda":
-                prog.graph = self._capture(prog.body, prog.effects)
+                prog.graph = self.capture(prog.body, prog.effects)
         prog.keys.fill(key)
         if prog.graph is None:
             prog.body()
             return
-        prog.graph.replay()
+        self.replay(prog.graph, prog.effects)
+
+    def replay(self, graph: torch.cuda.CUDAGraph, effects: list) -> None:
+        """Replay ``graph`` on the current stream, then run the host
+        effects its capture recorded."""
+        graph.replay()
         self.replays += 1
-        for fn in prog.effects:
+        for fn in effects:
             fn()
 
-    def _capture(self, body, effects) -> torch.cuda.CUDAGraph:
+    def pool_bytes(self) -> int:
+        """Bytes of the card's memory segments in this runner's pool."""
+        if self.pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+
+    def capture(self, body, effects: list) -> torch.cuda.CUDAGraph:
+        """``body`` captured as a CUDA graph into this runner's pool, its
+        host effects appended to ``effects``. Nothing runs: replay it."""
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # no cycle collection during a capture: it may destroy a dead
@@ -220,6 +243,7 @@ class Runner:
         finally:
             if gc_was_on:
                 gc.enable()
+        self._graphs.append(graph)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return graph

@@ -8,16 +8,20 @@ cross-check and sub-pixel refinement; ``match_pair_tsgm`` is the
 coarse-to-fine driver of densify's SGM estimator.
 
 The JAX package reaches no Pallas kernel here (its volumes and scans are
-XLA-jitted jnp), so the device part is plain PyTorch on the tensors'
-device:
+XLA-jitted jnp). Its jitted scans, one ``lax.scan`` a directional pass,
+become one launch of the hand-written kernel ``csrc/sgm_scan.cu`` for
+every batch of passes on the card (``sgm_scan``); the rest of the device
+part is plain PyTorch on the tensors' device:
 
 * the cost volume is accumulated per texel offset over chunks of
   disparities, never one launch per disparity;
-* each DP scan is a Python loop over rows or columns with a (B, M, D)
-  carry that batches every pass of the same arithmetic: the forward and
+* each batch of DP passes has one (B, N, M, D) layout: the forward and
   reverse passes of an axis, the four diagonal passes (a dx = -1 pass is a
   dx = +1 pass over the column-flipped volume) and, in ``match_pair_tsgm``,
-  the left and right matches of a level;
+  the left and right matches of a level. On the card it is one
+  ``sgm_scan`` launch; on the CPU its plain version,
+  ``_scan_passes_plain``, a Python loop over rows or columns with a
+  (B, M, D) carry, whose arithmetic the kernel repeats op for op;
 * the passes are summed in the JAX order, and where XLA's CPU backend
   fuses a multiply-add or evaluates exp its own way the port does the same
   (``utils/fmath``), so the card equals the CPU to the bit. Only rsqrt is
@@ -33,6 +37,7 @@ projection and fusion.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -42,6 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from openmvs_tpu_torch.io import images as imio
+from openmvs_tpu_torch.ops import _build
+from openmvs_tpu_torch.ops.pm_kernel import count_launch
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils.fmath import exp_xla, fma, rsqrt
 
@@ -174,6 +181,59 @@ def _p2_eff(grad: torch.Tensor, p2: float, alpha: float, beta: float) -> torch.T
 
 def _scan_passes(xs: torch.Tensor, p2s: torch.Tensor, p1: float, shift: int,
                  diag: bool) -> torch.Tensor:
+    """``_scan_passes_plain``'s passes: one ``sgm_scan`` launch on the
+    card, the plain loop on the CPU."""
+    return sgm_scan(xs.contiguous(), p2s.contiguous(), p1, shift, diag)
+
+
+def sgm_scan(xs: torch.Tensor, p2s: torch.Tensor, p1: float, shift: int,
+             diag: bool) -> torch.Tensor:
+    """The kernel's wrapper: B directional DP passes of ``xs`` (B, N, M, D)
+    with per-step P2 ``p2s`` (B, N, M), contiguous float32, as
+    ``_scan_passes_plain`` computes them. CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/sgm_scan.cu`` or raise."""
+    if xs.dim() != 4:
+        raise ValueError(f"xs: {xs.dim()}-D, expected (B, N, M, D)")
+    for name, t, shape in (("xs", xs, xs.shape), ("p2s", p2s, xs.shape[:3])):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        if t.device != xs.device:
+            raise ValueError(f"{name}: on {t.device}, expected {xs.device}")
+    if shift not in (0, 1):
+        raise ValueError(f"shift {shift}: expected 0 or 1")
+    if xs.device.type == "cpu":
+        return _scan_passes_plain(xs, p2s, p1, shift, diag)
+    return _sgm_scan_launch(xs, p2s, p1, shift, diag)
+
+
+def _sgm_scan_launch(xs, p2s, p1, shift, diag) -> torch.Tensor:
+    """The card route of ``sgm_scan`` (operands already checked)."""
+    if xs.device.type != "cuda":
+        raise ValueError(f"sgm_scan kernel: tensors on {xs.device}, expected cuda")
+    B, N, M, D = xs.shape
+    if not 1 <= D <= _build.SGM_MAX_D:
+        raise ValueError(f"sgm_scan kernel: {D} disparities, expected 1 to "
+                         f"{_build.SGM_MAX_D}")
+    out = torch.empty_like(xs)
+    lib = _build.library("sgm_scan")
+    with torch.cuda.device(xs.device):
+        rc = lib.sgm_scan_launch(
+            ctypes.c_void_p(xs.data_ptr()), ctypes.c_void_p(p2s.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), B, N, M, D, ctypes.c_float(_f32(p1)),
+            int(shift), int(bool(diag)),
+            ctypes.c_void_p(torch.cuda.current_stream(xs.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"sgm_scan_launch failed: {_build.error_string(rc)}")
+    count_launch("sgm_scan")
+    return out
+
+
+def _scan_passes_plain(xs: torch.Tensor, p2s: torch.Tensor, p1: float, shift: int,
+                       diag: bool) -> torch.Tensor:
     """B directional DP passes at once, each forward along axis 1 of
     ``xs`` (B, N, M, D) with per-step P2 ``p2s`` (B, N, M):
 
@@ -277,7 +337,7 @@ def aggregate(cost: torch.Tensor, image: torch.Tensor, p1: float = 1.0,
               p2: float = 8.0, alpha: float = 2.0, num_dirs: int = 4) -> torch.Tensor:
     """Sum of the 4 axis-aligned DP passes (beta 0.1) over an (H, W, D)
     float volume; ``num_dirs`` is accepted and ignored, as in the JAX
-    package."""
+    package. On the card D is at most 256 (``sgm_scan`` raises above)."""
     return _aggregate(cost[None], image[None], p1, p2, alpha, 0.1, False)[0]
 
 
@@ -289,7 +349,7 @@ def aggregate8(cost_u8: torch.Tensor, image: torch.Tensor, p1: float = 3.0,
     runs its 4 directions forward and backward, SemiGlobalMatcher.cpp:
     1203-1265). ``cost_u8`` may be (H, W, D) with an (H, W) image, or a
     batch (B, H, W, D) with (B, H, W) images, aggregated in one set of
-    scans."""
+    scans. On the card D is at most 256 (``sgm_scan`` raises above)."""
     single = cost_u8.dim() == 3
     cost = cost_u8.to(torch.float32)
     if single:
@@ -788,9 +848,14 @@ def match_pair_tsgm(
 
     d_lo/d_hi: full-resolution global disparity bounds (e.g. from sparse
     matches). The volumes and scans run on ``device``; ``stats``, a list,
-    gets one record per level (shape, num_d, seconds). Returns (disparity
-    float32 with NaN invalid, accumulated winner cost float32)."""
+    gets one record per level (shape, num_d, seconds). On the card
+    ``max_num_d`` is at most 256, the disparities ``sgm_scan`` holds.
+    Returns (disparity float32 with NaN invalid, accumulated winner cost
+    float32)."""
     dev = devmod.resolve(device)
+    if dev.type == "cuda" and max_num_d > _build.SGM_MAX_D:
+        raise ValueError(f"max_num_d {max_num_d}: sgm_scan on the card takes at most "
+                         f"{_build.SGM_MAX_D} disparities")
     H, W = rectA.shape
     if H == 0 or W == 0:
         # degenerate rectified pair (extreme geometry can collapse a level):

@@ -14,11 +14,14 @@ exact interpolant gradient and the projective/barycentric chain rule is
 explicit. Rasterization runs on the host (``openmvs_tpu_torch.native``)
 every 8 iterations and its (face id, barycentric) maps are constants in
 between, the reference's fixed visibility per iteration. All pairs are
-stacked on a leading pair axis and each iteration is one pass of plain
-PyTorch on the device: the JAX package reaches no Pallas kernel here.
+stacked on a leading pair axis and each iteration is one pass of PyTorch
+on the device. The JAX package reaches no Pallas kernel here; its jitted
+iteration (``_device_iter``) becomes an ``IterProgram``, on a card a CUDA
+graph replayed once an iteration, and its scatter-adds ordered segment
+sums (``ops/segment.py``, the ``csrc/segment_sum.cu`` kernel on a card).
 
 ``refine_mesh(devices=[...])`` splits the pair axis over several devices
-(``PairShards``). Left out: the TPU compile-cache levers (shape
+(``PairShards``), iterating eagerly. Left out: the TPU compile-cache levers (shape
 bucketing), the full-autodiff Adam path
 (``OMVS_REFINE_CPU_AD``) and the other ``OMVS_REFINE_*`` switches (their
 defaults run). The mesh conditioning before the scales (``decimate``,
@@ -37,6 +40,7 @@ from openmvs_tpu_torch import mesh_ops, native
 from openmvs_tpu_torch.config import DenseOptions, RefineOptions
 from openmvs_tpu_torch.io import images as imio
 from openmvs_tpu_torch.mesh_ops import edges_of_faces
+from openmvs_tpu_torch.ops import graphs, segment
 from openmvs_tpu_torch.parallel.mesh import psum, resolve_device, to
 from openmvs_tpu_torch.scene import Mesh, Scene
 from openmvs_tpu_torch.utils.fmath import fma, rsqrt
@@ -349,11 +353,12 @@ def _segment_sum(index: torch.Tensor, src: torch.Tensor, n: int) -> torch.Tensor
     the order of the rows (as XLA's CPU scatter adds them): a stable sort
     of the rows, then one sequential sum per segment. The card's
     index_add_ races atomics, which would round differently from run to
-    run and from the CPU."""
-    order = torch.argsort(index, stable=True)
-    counts = torch.bincount(index, minlength=n)
-    return torch.segment_reduce(src.index_select(0, order), "sum", lengths=counts,
-                                axis=0, unsafe=True)
+    run and from the CPU. Rows whose index is ``n``, one past the last
+    segment, are left out. The order and offsets come from
+    ``segment.segments`` (no host read, so a CUDA graph holds them), the
+    sums from ``segment.segment_sum``: the kernel on the card, its plain
+    version on the CPU."""
+    return segment.segment_sum(*segment.segments(index, n), src.contiguous())
 
 
 def _sum_ring(x: torch.Tensor) -> torch.Tensor:
@@ -597,14 +602,15 @@ def _pair_energy_grad_manual(verts: torch.Tensor, pd: PairData, half: int = 3):
 def _pair_face_acc(verts: torch.Tensor, pd: PairData, half: int = 3):
     """Per-pair (energy, per-pixel face rows (..., H*W, 10): the 9
     barycentric gradient contributions and the valid flag, their face
-    indices (..., H*W), n_valid): the chain of _pair_energy_grad_manual
-    accumulated by RASTER FACE ID, one scatter index per pixel."""
+    indices (..., H*W; -1 where no face), n_valid): the chain of
+    _pair_energy_grad_manual accumulated by RASTER FACE ID, one scatter
+    index per pixel. A pixel with no face has ok False, so its row is
+    +0.0."""
     e, contrib, ok = _pixel_grads(verts, pd, half)
     M = ok.to(torch.float32)
     row = torch.cat([contrib.reshape(*contrib.shape[:-2], 9), M[..., None]],
                     dim=-1)                                 # (..., H, W, 10)
-    # fid == -1 pixels have ok False => zero rows; clamp their index to 0
-    idx = torch.clamp(pd.fid, min=0).long()
+    idx = pd.fid.long()
     return (e, row.reshape(*row.shape[:-3], -1, 10),
             idx.reshape(*idx.shape[:-2], -1), torch.sum(M, dim=(-2, -1)))
 
@@ -618,7 +624,13 @@ def _photo_face_sums(verts, pds, faces):
     es, rows, idx, n_valids = _pair_face_acc(verts, pds)
     Pn = es.shape[0]
     pair = torch.arange(Pn, device=verts.device)[:, None]
-    accs = _segment_sum((idx + pair * nf).reshape(-1), rows.reshape(-1, 10),
+    # the JAX package adds a faceless pixel's +0.0 row into face 0, where it
+    # changes no bit (a sum that starts at +0.0 is never -0.0, and adding
+    # +0.0 leaves any other value as it is); here it goes to the segment
+    # past the last, which _segment_sum leaves out, so face 0's sum does
+    # not run over the whole background
+    seg = torch.where(idx >= 0, idx + pair * nf, Pn * nf)
+    accs = _segment_sum(seg.reshape(-1), rows.reshape(-1, 10),
                         Pn * nf).reshape(Pn, nf, 10)
     w_pair = n_valids * pds.reg_scale                       # (P,)
     # the pair sum in pair order, each term's product fused into the add
@@ -760,6 +772,81 @@ def _device_iter(v, it, pds, adj, deg, faces, step0, med_edge,
     e, g = _energy_grad(v, pds, adj, deg, faces, step0, med_edge,
                         reg_w, boundary, ratio)
     return v - (_decay(int(it)) * step0) * g, e
+
+
+class IterProgram:
+    """``_device_iter`` as a device program over static buffers: the
+    counterpart of the JAX package's jitted iteration for one scale and
+    mesh (``_refine_at_scale`` makes a new one when pruning changes the
+    mesh). Eagerly an iteration is some 1,560 launches from Python; on a
+    card the program captures it once as a CUDA graph (``graphs.Runner``:
+    its lock, pool and stream) and each ``step`` is one replay.
+
+    Buffers: the vertices ``v`` (a copy of the MeshTensors', updated in
+    place, so replays chain with no host copy), the assembled PairData (the scale's
+    statics as they are, the rasterization's fields copied in at each
+    ``refresh``), ``ratio``, the energy ``e`` of the last step, and the
+    decay: a Python float would be frozen into the capture, so the program
+    reads ``_decay(k)`` from the table ``decays`` at the counter ``it``,
+    which it advances. Every bit equals ``_device_iter``'s: the same
+    functions on the same values (a one-shard ``PairShards`` adds nothing).
+
+    The first step of a program runs its body eagerly (libraries initialise
+    lazily on a first call, which a capture does not permit); on a card the
+    second captures it and every later step replays it. On the CPU every
+    step runs the body on the same buffers (the program's CPU form). A
+    capture or replay that fails raises."""
+
+    # PairData fields that a refresh changes; the rest are the statics'
+    _RASTER_FIELDS = ("face_vid", "bary", "mask", "reg_scale", "fid")
+
+    def __init__(self, runner, mt: MeshTensors, statics: PairStatic,
+                 step0: torch.Tensor, med_edge: torch.Tensor, reg_w: torch.Tensor,
+                 iters: int):
+        dev = mt.verts.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.runner, self.mt, self.statics = runner, mt, statics
+        self.v = mt.verts.clone()  # on the CPU mt.verts may be the caller's array
+        self.step0, self.med_edge, self.reg_w = step0, med_edge, reg_w
+        self.decays = torch.tensor([_decay(k) for k in range(iters)], **f32)
+        self.it = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.ratio = torch.zeros((), **f32)
+        self.e = torch.zeros((), **f32)
+        self.pd: Optional[PairData] = None
+        self.graph = None
+        self.effects: list = []
+        self.steps = 0
+
+    def refresh(self, rasters: PairRaster, ratio: float, it: int) -> None:
+        """Load a refresh's rasterization (tensors on the program's
+        device), the regularizer's ratio and the next iteration's index."""
+        pd = _assemble_pair_data(self.statics, rasters, self.mt.faces)
+        if self.pd is None:
+            self.pd = pd
+        else:
+            for f in self._RASTER_FIELDS:
+                getattr(self.pd, f).copy_(getattr(pd, f))
+        self.ratio.fill_(ratio)
+        self.it.fill_(it)
+
+    def _body(self) -> None:
+        mt = self.mt
+        e, g = _energy_grad(self.v, self.pd, mt.adj, mt.deg, mt.faces, self.step0,
+                            self.med_edge, self.reg_w, mt.boundary, self.ratio)
+        decay = self.decays.index_select(0, self.it).reshape(())
+        self.v.copy_(self.v - (decay * self.step0) * g)
+        self.e.copy_(e)
+        self.it.add_(1)
+
+    def step(self) -> None:
+        """One iteration: ``v`` and ``e`` as ``_device_iter`` returns them."""
+        if self.graph is None and self.steps > 0 and self.v.is_cuda:
+            self.graph = self.runner.capture(self._body, self.effects)
+        if self.graph is None:
+            self._body()
+        else:
+            self.runner.replay(self.graph, self.effects)
+        self.steps += 1
 
 
 def _smooth_energy_grad_manual(verts: torch.Tensor, adj: torch.Tensor,
@@ -959,13 +1046,16 @@ def mesh_tensors(verts, faces, adj, deg, boundary, dev) -> MeshTensors:
 
 def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
                      opts: RefineOptions, dev: torch.device,
-                     host_s: Dict[str, float], devices=None) -> Tuple[Mesh, int, int]:
+                     host_s: Dict[str, float], devices=None,
+                     runner=None) -> Tuple[Mesh, int, int]:
     """Refine ``mesh`` at one scale; returns (mesh, iterations, refreshes)
     and adds the host seconds of each refresh's download, rasterization
-    and upload to ``host_s``. The pair axis is split over ``devices``
-    (``[dev]`` by default; no more shards than pairs) as a ``PairShards``;
-    the step is applied once, on ``dev``, and the vertices go to every
-    shard at the next iteration."""
+    and upload to ``host_s``. With a ``runner`` (``graphs.Runner`` of
+    ``dev``) the iterations run as an ``IterProgram``. Without one, they
+    run eagerly, the pair axis split over ``devices`` (``[dev]`` by
+    default; no more shards than pairs) as a ``PairShards``; the step is
+    applied once, on ``dev``, and the vertices go to every shard at the
+    next iteration."""
     grays, cams = scaled_views(scene, scale)
     mesh = subdivide_to_area(mesh, scene, float(opts.max_face_area) / max(scale, 1e-3))
     faces = mesh.faces
@@ -991,9 +1081,14 @@ def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
     iter_start = iters * 4 // 10 if opts.planar_vertex_ratio > 0 else 1 << 30
     # images/cameras never change within a scale: upload ONCE; each
     # refresh ships only fid + 2 barycentrics (+ scalars) per pair
-    shard_devs = list(devices or [dev])[:max(1, len(pairs))]
+    shard_devs = [dev] if runner is not None else list(devices or [dev])[:max(1, len(pairs))]
     statics = [to_device(p, d) for p, d in zip(
         _pad_split(build_statics(pairs, grays, cams), len(shard_devs)), shard_devs)]
+
+    def program():
+        return IterProgram(runner, mt, statics[0], step0, med, reg_w, iters)
+
+    prog = program() if runner is not None else None
     refreshes = 0
     for it in range(0, iters, RERASTER):
         t0 = time.perf_counter()
@@ -1001,21 +1096,28 @@ def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
         t1 = time.perf_counter()
         rasters_np = build_rasters(pairs, grays, cams, faces, v_prev)
         t2 = time.perf_counter()
-        faces_s = [to(mt.faces, d) for d in shard_devs]
-        pds = PairShards(
-            [_assemble_pair_data(st, to_device(r, d), f) for st, r, d, f in zip(
-                statics, _pad_split(rasters_np, len(shard_devs), {"fid": -1}),
-                shard_devs, faces_s)], faces_s)
-        ratio_it = torch.tensor(opts.rigidity_elasticity_ratio
-                                if it <= iter_stop else 1.0, **f32)
+        ratio = opts.rigidity_elasticity_ratio if it <= iter_stop else 1.0
+        if prog is not None:
+            prog.refresh(to_device(rasters_np, dev), ratio, it)
+        else:
+            faces_s = [to(mt.faces, d) for d in shard_devs]
+            pds = PairShards(
+                [_assemble_pair_data(st, to_device(r, d), f) for st, r, d, f in zip(
+                    statics, _pad_split(rasters_np, len(shard_devs), {"fid": -1}),
+                    shard_devs, faces_s)], faces_s)
+            ratio_it = torch.tensor(ratio, **f32)
         t3 = time.perf_counter()
         host_s["down"] += t1 - t0
         host_s["raster"] += t2 - t1
         host_s["up"] += t3 - t2
         refreshes += 1
         for k in range(it, min(it + RERASTER, iters)):
-            v_d, e = _device_iter(v_d, k, pds, mt.adj, mt.deg, mt.faces,
-                                  step0, med, reg_w, mt.boundary, ratio_it)
+            if prog is not None:
+                prog.step()
+                v_d, e = prog.v, prog.e
+            else:
+                v_d, e = _device_iter(v_d, k, pds, mt.adj, mt.deg, mt.faces,
+                                      step0, med, reg_w, mt.boundary, ratio_it)
         if it % 8 == 0:   # the loop's only sync besides the refresh download
             log.info("  iter %d: E=%.5f", it, float(e))
         if it >= iter_start and iters - it > 5:
@@ -1065,6 +1167,8 @@ def _refine_at_scale(scene, mesh: Mesh, pairs, scale: float,
                     boundary_np = _vertex_boundary(faces, nvr)
                     mt = mesh_tensors(v_now, faces, adj, deg, boundary_np, dev)
                     v_d = mt.verts
+                    if prog is not None:
+                        prog = program()
     v_np = v_d.cpu().numpy()[:nvr]
     return Mesh(vertices=v_np.astype(np.float32), faces=faces), iters, refreshes
 
@@ -1091,17 +1195,24 @@ def condition_mesh(mesh: Mesh, opts: RefineOptions) -> Mesh:
 
 def refine_mesh(scene: Scene, mesh: Optional[Mesh] = None,
                 opts: RefineOptions = RefineOptions(), device="cuda",
-                stats: Optional[dict] = None, devices=None) -> Mesh:
+                stats: Optional[dict] = None, devices=None,
+                _eager: bool = False) -> Mesh:
     """Coarse-to-fine photometric refinement (Scene::RefineMesh role) on
     ``device`` ("cuda" by default; raises without a card). ``devices``
     (default ``[device]``): with more than one, the pair axis is split over
-    them and the per-shard gradients add on ``device``.
+    them, the per-shard gradients add on ``device``, and the iterations run
+    eagerly. On one device they run as an ``IterProgram`` (on a card, a CUDA
+    graph replayed per iteration); ``_eager`` runs them one launch at a
+    time instead, the reference the program equals to the bit.
 
     ``stats``, if given, receives the pair count, per scale its seconds,
-    iterations, refreshes and mesh size, and the host seconds of the
-    refreshes' download, rasterization and upload (``host_s``)."""
+    iterations, refreshes and mesh size, the host seconds of the
+    refreshes' download, rasterization and upload (``host_s``), and the
+    program's captures, their seconds, replays and pool bytes
+    (``graphs``; zeros when eager)."""
     dev = resolve_device(device)
     devices = [resolve_device(d) for d in devices] if devices else [dev]
+    runner = graphs.Runner(dev) if len(devices) == 1 and not _eager else None
     mesh = mesh if mesh is not None else scene.mesh
     if len(mesh.faces) == 0:
         raise ValueError("no mesh to refine")
@@ -1142,10 +1253,14 @@ def refine_mesh(scene: Scene, mesh: Optional[Mesh] = None,
         t0 = time.perf_counter()
         with timed(log, f"scale {scale:.2f}"):
             cur, iters, refreshes = _refine_at_scale(scene, cur, sp, scale,
-                                                     opts, dev, host_s, devices)
+                                                     opts, dev, host_s, devices, runner)
         per_scale.append({"scale": scale, "seconds": time.perf_counter() - t0,
                           "iters": iters, "refreshes": refreshes,
                           "vertices": len(cur.vertices), "faces": len(cur.faces)})
     if stats is not None:
-        stats.update(pairs=len(pairs), scales=per_scale, host_s=host_s)
+        stats.update(pairs=len(pairs), scales=per_scale, host_s=host_s, graphs={
+            "captures": runner.captures if runner else 0,
+            "capture_s": runner.capture_s if runner else 0.0,
+            "replays": runner.replays if runner else 0,
+            "pool_bytes": runner.pool_bytes() if runner else 0})
     return cur

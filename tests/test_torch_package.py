@@ -21,8 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(openmvs_tpu_torch.__path__,
 # the file-loading slice (scenes, images, importers, the CLI), the
 # real-SfM-input slice (undistortion, the other importers, the geometry of
 # the scene transforms, splitting, evaluation), the project archives,
-# logging and safety hooks and viewers, the multi-device paths, and the
-# sweep runner
+# logging and safety hooks and viewers, the multi-device paths, the
+# sweep runner, and the ordered segment sums of refine's iteration
 need = {"openmvs_tpu_torch." + n for n in (
     "__main__", "apps", "tower", "interfaces", "interfaces.colmap",
     "interfaces.openmvg", "io.mvs", "io.images", "io.png", "io.gltf", "io.sml",
@@ -31,7 +31,7 @@ need = {"openmvs_tpu_torch." + n for n in (
     "geometry.similarity", "utils.octree", "split", "eval", "datasets",
     "io.boost_archive", "utils.log", "utils.safety", "viewer", "viewer_web",
     "parallel", "parallel.mesh", "parallel.sharded", "parallel.sharded_filter",
-    "ops.graphs")}
+    "ops.graphs", "ops.segment", "ops.sgm", "refine")}
 for n in names:
     importlib.import_module(n)
 bad = [k for k in ("jax", "cv2", "PIL", "openmvs_tpu") if k in sys.modules]
@@ -45,8 +45,8 @@ def test_port_imports_no_jax_cv2_or_reference_package():
     """Every module of the port, the meshing, mesh operations and mesh
     formats, the scene and image loaders, the project archives, the
     importers with the image undistortion, the transforms, splitting,
-    evaluation, the viewers, the CLI, the multi-device paths and the sweep
-    runner included,
+    evaluation, the viewers, the CLI, the multi-device paths, the sweep
+    runner and the segment sums included,
     imports neither jax, OpenCV, PIL nor the JAX package (PIL
     only when a file other than PNG or SCI is read or written,
     tests/test_torch_image_load.py)."""

@@ -153,9 +153,14 @@ def test_dp_pass_diag_equals_jax(dx, reverse):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("num_dirs", [8, 4])
-def test_aggregate8_equals_jax_on_a_shared_volume(num_dirs):
-    vol, left = _volume_case()
+@pytest.mark.parametrize("num_dirs,num_d", [
+    pytest.param(8, 24, id="8"), pytest.param(4, 24, id="4"),
+    pytest.param(8, 1, id="8-d1"), pytest.param(4, 1, id="4-d1"),
+    pytest.param(8, 33, id="8-d33"), pytest.param(4, 33, id="4-d33")])
+def test_aggregate8_equals_jax_on_a_shared_volume(num_dirs, num_d):
+    """On the CPU the scans are ``_scan_passes_plain``; D = 1 and 33 are
+    the card kernel's edge cases (one lane, one warp and one lane more)."""
+    vol, left = _volume_case(num_d=num_d)
     want = np.asarray(jsgm.aggregate8(jnp.asarray(vol), jnp.asarray(left), 3.0, 4.0, 14.0,
                                       num_dirs, 38.0 / 255.0))
     got = tsgm.aggregate8(_t(vol), _t(left), 3.0, 4.0, 14.0, num_dirs, 38.0 / 255.0)
