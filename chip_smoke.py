@@ -132,14 +132,27 @@ Phases, each printing one JSON line:
                   -2 resumes to the same cloud (and, with the .dmap files
                   gone, re-projects the .dimap files without matching: their
                   1/4-pixel disparities give a smaller cloud, as in the JAX
-                  package); sgm_scan launches over the call; one
-                  full-width pair's disparities and costs on the card equal
-                  the CPU's; torch.profiler over that pair: launches per
-                  aggregate8 and the device-busy share; sgm_scan against
-                  _scan_passes_plain on the card, bit for bit with signed
-                  zeros, for the horizontal, vertical and diagonal batches
-                  of that pair's finest aggregate8 and for aggregate's two,
-                  with ms (graph replay and eager), plain ms and the bound
+                  package); each matching level runs as a CUDA graph of
+                  its shape class (sgm.LevelProgram): the call's captures,
+                  replays and pool bytes, and no capture in a pair whose
+                  classes were captured before; sgm_scan and wzncc_volume
+                  launches over the call; one full-width pair's
+                  disparities and costs graphed (first run, capture,
+                  replay) equal to eager ones, which equal the CPU's;
+                  torch.profiler over that pair eager and graphed: host
+                  kernel launches, graph replays, captures, kernels run
+                  and the device-busy share, launches per eager
+                  aggregate8; sgm_scan against _scan_passes_plain on the
+                  card, bit for bit with signed zeros, for the horizontal,
+                  vertical and diagonal batches of that pair's finest
+                  aggregate8 and for aggregate's two, with ms (graph
+                  replay and eager), plain ms and the bound, and at D 257,
+                  384 and 512 (the carry read back from the output);
+                  wzncc_volume against its plain version bit for bit at
+                  the level shapes (2, 240, 320) with D 32 and 64 and (2,
+                  480, 640) with D 64 and 128, with ms, plain ms and the
+                  bound; match_pair_tsgm(max_num_d=512) on a 120x160 pair
+                  with a widened range, card equal to CPU
  13. pipeline   - phase densify's cloud through the rest of the chain:
                   reconstruct.reconstruct_mesh(scene, MeshOptions()) on the
                   host (points before and after dedup, tets, raw faces,
@@ -235,7 +248,8 @@ Phases, each printing one JSON line:
                   pipeline's textured mesh
 Each of phases 4, 5, 5b, 7, 9, 10, 12, 14, 15, 16 and 17 sets the launch
 counts to 0 just before the path it drives and reads them just after (10
-the segment_sum count, 12 the sgm_scan count beside the PatchMatch ones). Then the {"kernels": [...]} line
+the segment_sum count, 12 the sgm_scan and wzncc_volume counts beside the
+PatchMatch ones). Then the {"kernels": [...]} line
 and, last, {"ok": true, "device": ...}. Any failure raises and exits
 non-zero. Imports nothing of JAX.
 """
@@ -411,9 +425,19 @@ JAX_SGM_ACCURACY = [0.9686011654148001, 0.9718663110707598, 0.9685157348825745,
 JAX_SGM_COMPLETENESS = [0.672946626421426, 0.6835954250251437, 0.7375995443222334,
                         0.6711149799707735, 0.668567880223546]
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 and fp64 outside the tensor
+# cores, HBM3
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
+# wzncc_volume's operations per (pixel, disparity), counted from
+# csrc/wzncc_volume.cu: 6 fp32 a texel (three products, three adds), 8 in
+# the epilogue (s s, the division, the subtraction, the product with the
+# rsqrt, 1 - min, the min, the product by 255, the rounding) and 4 fp64
+# (the fused multiply-add's product and add, the division, the root)
+WZNCC_FLOP_TEXEL = 6
+WZNCC_FLOP_EPILOGUE = 8
+WZNCC_FLOP64 = 4
 # fp32 operations per (candidate, pixel), counted from csrc/pm_common.cuh
 # with an fma as two: per texel (warp, bounds, sample, accumulate), per
 # pixel (setup, ZNCC epilogue), and the geometric term of K2 and K3
@@ -466,9 +490,12 @@ KERNEL_LINE = (
     ("score_views_geom_act_exact", "pm_score_views.cu", "openmvs_tpu/ops/pm_kernel.py:979",
      "sweeps"),
     # the jitted programs' kernels: the SGM scans of aggregate8, the ordered
-    # segment sums of refine's _device_iter (rows of one aggregate8 call and
-    # of one iteration, phases sgm and refine)
+    # segment sums of refine's _device_iter, the masked WZNCC volume of
+    # _wzncc_volume0 and mask_volume (rows of one aggregate8 call, of one
+    # iteration and of one (2, 480, 640) level with D = 64, phases sgm and
+    # refine)
     ("sgm_scan", "sgm_scan.cu", "openmvs_tpu/ops/sgm.py:519", "sgm"),
+    ("wzncc_volume", "wzncc_volume.cu", "openmvs_tpu/ops/sgm.py:335", "sgm"),
     ("segment_sum", "segment_sum.cu", "openmvs_tpu/refine.py:531", "refine"),
 )
 
@@ -2215,7 +2242,8 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     """dense_reconstruction(scene, opts, save_dmaps_to=folder) on the card
     with the launch counts set to 0 just before and read just after, and
     every match_pair_tsgm call recorded: (cloud, wall s, stage s, per-pair
-    records with their levels, kernel launches)."""
+    records with their levels and the graph captures the pair made,
+    kernel launches, the call's graphs as _graph_summary gives them)."""
     import torch
 
     from openmvs_tpu_torch import densify
@@ -2224,11 +2252,16 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     pairs = []
     match = sgm.match_pair_tsgm
 
+    def captures(runners):
+        return sum(r.captures for r in runners.all()) if runners is not None else 0
+
     def recorded(*a, **kw):
         levels = []
+        before = captures(kw.get("runners"))
         t0 = time.perf_counter()
         out = match(*a, stats=levels, **kw)
-        pairs.append({"seconds": time.perf_counter() - t0, "levels": levels})
+        pairs.append({"seconds": time.perf_counter() - t0, "levels": levels,
+                      "captures": captures(kw.get("runners")) - before})
         return out
 
     stage_log = _StageLog()
@@ -2236,17 +2269,38 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     logger.addHandler(stage_log)
     sgm.match_pair_tsgm = recorded
     try:
-        pm_kernel.reset_launches()
-        t0 = time.perf_counter()
-        pc = densify.dense_reconstruction(scene, opts, save_dmaps_to=folder,
-                                          fusion_mode=fusion_mode, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(pm_kernel.LAUNCHES)
+        with _graph_runners() as made:
+            pm_kernel.reset_launches()
+            t0 = time.perf_counter()
+            pc = densify.dense_reconstruction(scene, opts, save_dmaps_to=folder,
+                                              fusion_mode=fusion_mode, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(pm_kernel.LAUNCHES)
+            graphs_ = _graph_summary(made)
     finally:
         sgm.match_pair_tsgm = match
         logger.removeHandler(stage_log)
-    return pc, wall, stage_log.stages, pairs, launches
+    return pc, wall, stage_log.stages, pairs, launches, graphs_
+
+
+def _check_captured_classes(pairs):
+    """Pairs in call order: a level's shape class (h, w, num_d, last level)
+    is captured at its second run, so a pair whose every class ran twice
+    before it must capture nothing. Returns how many pairs were such."""
+    runs = {}
+    held = 0
+    for i, p in enumerate(pairs):
+        classes = [(lv["hw"][0], lv["hw"][1], lv["num_d"], k == len(p["levels"]) - 1)
+                   for k, lv in enumerate(p["levels"])]
+        if classes and all(runs.get(c, 0) >= 2 for c in classes):
+            held += 1
+            if p["captures"]:
+                raise RuntimeError(f"SGM pair {i}: {p['captures']} captures, though its "
+                                   f"classes {classes} were captured before")
+        for c in classes:
+            runs[c] = runs.get(c, 0) + 1
+    return held
 
 
 def _sgm_pair(scene, view):
@@ -2270,11 +2324,15 @@ def _sgm_pair(scene, view):
     return rectA, rectB, d_lo, d_hi
 
 
-def _profile_sgm_pair(rectA, rectB, d_lo, d_hi):
+def _profile_sgm_pair(rectA, rectB, d_lo, d_hi, runners=None):
     """match_pair_tsgm of one pair on the card, once unprofiled and once
-    under torch.profiler with each aggregate8 call marked: the pair's
-    wall, device-busy share, launches and copies, and per aggregate8 call
-    the kernel launches (CUDA launch calls inside its range) and host ms."""
+    under torch.profiler: the pair's wall, device-busy share, kernels run
+    on the device, the host's kernel launches, graph replays and copies
+    (its CUDA calls in the trace), and the captures of the profiled call.
+    With ``runners`` (whose programs the caller has captured) the levels
+    replay CUDA graphs; without, they launch op by op and each aggregate8
+    call is marked: per call the kernel launches (CUDA launch calls inside
+    its range) and host ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2283,7 +2341,7 @@ def _profile_sgm_pair(rectA, rectB, d_lo, d_hi):
 
     def call():
         t0 = time.perf_counter()
-        sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda")
+        sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda", runners=runners)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -2295,23 +2353,34 @@ def _profile_sgm_pair(rectA, rectB, d_lo, d_hi):
             torch.cuda.synchronize()
             return out
 
+    def n_captures():
+        return sum(r.captures for r in runners.all()) if runners is not None else 0
+
     call()
     wall = call()
-    sgm.aggregate8 = marked
+    before = n_captures()
+    if runners is None:
+        sgm.aggregate8 = marked
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_profiled = call()
     finally:
         sgm.aggregate8 = agg
     dev = _device_summary(prof, 10, skip={"sgm.aggregate8"})
+    api = _host_calls(prof)
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     ranges = [(e.time_range.start, e.time_range.end) for e in events
               if e.name == "sgm.aggregate8"]
     launch_t = [e.time_range.start for e in events
                 if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
     per_call = [sum(a <= t <= b for t in launch_t) for a, b in ranges]
-    return {"wall_s": wall, "wall_profiled_s": wall_profiled,
+    return {"mode": "eager" if runners is None else "graphed",
+            "wall_s": wall, "wall_profiled_s": wall_profiled,
             "kernel_launches": dev["launches"], "copies": dev["copies"],
+            "host_kernel_launches": sum(api.get(k, 0) for k in LAUNCH_APIS),
+            "graph_replays": api.get("cudaGraphLaunch", 0),
+            "host_copies": api.get("cudaMemcpyAsync", 0),
+            "captures": n_captures() - before,
             "device_busy_s": dev["busy_s"],
             "device_busy_share": min(dev["busy_s"] / wall, 1.0),
             "aggregate8_calls": len(ranges),
@@ -2391,16 +2460,175 @@ def _sgm_scan_rows(card, rectA, rectB, d_lo, d_hi):
     return recs, row
 
 
+def _wzncc_args(rectA, rectB, hs, ws, num_d, l_min, seed):
+    """wzncc_volume_masked's operands for one level of a pair on the card:
+    both matches of the pair at (hs, ws) (weights of the two images, the
+    right images as the other match's left), their d_mins (l_min and the
+    right match's) and seeded per-pixel windows in the volume's range."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.ops import sgm
+
+    A, B = ((im if im.shape == (hs, ws) else imio.resize_area(im, ws, hs))
+            for im in (rectA, rectB))
+    imgs = torch.as_tensor(np.stack([A, B]).astype(np.float32), device="cuda")
+    d_mins = [l_min, -(l_min + num_d - 1)]
+    rng = np.random.default_rng(seed)
+    lo = np.stack([d + rng.integers(0, num_d // 2, (hs, ws)) for d in d_mins])
+    hi = lo + rng.integers(1, num_d, (2, hs, ws))
+    dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device="cuda")
+    return (*sgm.wzncc_weights(imgs), imgs.flip(0).contiguous(),
+            dev(d_mins, np.int32), num_d, dev(lo, np.int16), dev(hi, np.int16))
+
+
+def _wzncc_rows(card, rectA, rectB, d_lo):
+    """wzncc_volume against its plain version on the card at the level
+    shapes of the phase's pairs, (2, 240, 320) with D 32 and 64 and (2,
+    480, 640) with D 64 and 128, each from the phase's pair with the
+    level's l_min and seeded windows: bit for bit, CUDA-event ms of a graph
+    replay and of eager launches, plain ms and the bound (bytes: each input
+    read once, the volume written once; operations: fp32 at 67 TFLOP/s plus
+    fp64 at 34). Returns the records and the kernels line's row: the (2,
+    480, 640) level with D = 64."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch.ops import sgm
+
+    recs = []
+    T = 49
+    for hs, ws, num_d in ((240, 320, 32), (240, 320, 64), (480, 640, 64), (480, 640, 128)):
+        l_min = int(np.floor(d_lo * hs / rectA.shape[0])) - 8
+        args = _wzncc_args(rectA, rectB, hs, ws, num_d, l_min, seed=num_d + hs)
+        got = sgm.wzncc_volume_masked(*args)
+        want = sgm._wzncc_volume_plain(*args, 3, 3)
+        torch.cuda.synchronize()
+        px = 2 * hs * ws
+        nbytes = (2 * T + 3) * px * 4 + 2 * px * 2 + 2 * 4 + px * num_d
+        fp32 = px * num_d * (WZNCC_FLOP_TEXEL * T + WZNCC_FLOP_EPILOGUE)
+        fp64 = px * num_d * WZNCC_FLOP64
+        t_ops = fp32 / PEAK_FP32 + fp64 / PEAK_FP64
+        rec = {"phase": "sgm", "kernel": "wzncc_volume", "shape": [2, hs, ws, num_d],
+               "l_min": l_min, "bit_equal": bool(torch.equal(got, want)),
+               "max_abs_err": float((got.int() - want.int()).abs().max()),
+               "ms": cuda_ms(lambda: sgm.wzncc_volume_masked(*args), 20, graph=True),
+               "eager_ms": cuda_ms(lambda: sgm.wzncc_volume_masked(*args), 20),
+               "plain_ms": cuda_ms(lambda: sgm._wzncc_volume_plain(*args, 3, 3), 2),
+               "bytes": nbytes, "fp32_ops": fp32, "fp64_ops": fp64,
+               "bound_ms": max(nbytes / PEAK_BYTES, t_ops) * 1e3,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES >= t_ops else "operations",
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes a bilateral-weighted "
+                               "ZNCC cost volume", "card": card}
+        emit(rec)
+        recs.append(rec)
+    if not all(r["bit_equal"] for r in recs):
+        raise RuntimeError("wzncc_volume differs from its plain version")
+    row = dict(recs[2])
+    return recs, row
+
+
+def _sgm_scan_wide_rows(card):
+    """sgm_scan past the register path, D 257, 384 and 512, on a small
+    batch (2, 60, 80) of seeded integer costs: vertical (shift 0) and
+    diagonal (shift 1, diag) passes against _scan_passes_plain on the card,
+    bit for bit, with ms (graph replay), plain ms and the bytes bound."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(257)
+    recs = []
+    for D in (257, 384, 512):
+        for shift, diag in ((0, False), (1, True)):
+            xs = torch.as_tensor(rng.integers(0, 256, (2, 60, 80, D)).astype(np.float32),
+                                 device="cuda")
+            p2s = torch.as_tensor(rng.uniform(4, 60, (2, 60, 80)).astype(np.float32),
+                                  device="cuda")
+            got = sgm.sgm_scan(xs, p2s, 3.0, shift, diag)
+            want = sgm._scan_passes_plain(xs, p2s, 3.0, shift, diag)
+            torch.cuda.synchronize()
+            nbytes = (2 * xs.numel() + p2s.numel()) * 4
+            rec = {"phase": "sgm", "kernel": "sgm_scan", "batch": "wide",
+                   "shape": list(xs.shape), "shift": shift, "diag": diag,
+                   "bit_equal": bool(torch.equal(got.view(torch.int32),
+                                                 want.view(torch.int32))),
+                   "max_abs_err": float((got - want).abs().max()),
+                   "ms": cuda_ms(lambda: sgm.sgm_scan(xs, p2s, 3.0, shift, diag), 5,
+                                 graph=True),
+                   "plain_ms": cuda_ms(
+                       lambda: sgm._scan_passes_plain(xs, p2s, 3.0, shift, diag), 1),
+                   "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                   "bound_by": "bytes", "card": card}
+            emit(rec)
+            recs.append(rec)
+    if not all(r["bit_equal"] for r in recs):
+        raise RuntimeError("sgm_scan past 256 disparities differs from _scan_passes_plain")
+    return recs
+
+
+def _sgm_wide_pair(card, rectA, rectB, d_lo, d_hi):
+    """match_pair_tsgm(max_num_d=512) on the phase's pair brought to
+    120x160, its range widened by 150 px each way and every level's volume
+    512 deep (OMVS_SGM_ND_LADDER=16,512), on the card and on the CPU:
+    disparities and costs equal."""
+    import numpy as np
+    import torch
+
+    from openmvs_tpu_torch.io import images as imio
+    from openmvs_tpu_torch.ops import pm_kernel, sgm
+
+    A, B = (imio.resize_area(im, 160, 120) for im in (rectA, rectB))
+    lo, hi = int(np.floor(d_lo / 4)) - 150, int(np.ceil(d_hi / 4)) + 150
+    prev = os.environ.get("OMVS_SGM_ND_LADDER")
+    os.environ["OMVS_SGM_ND_LADDER"] = "16,512"
+    try:
+        levels = []
+        pm_kernel.reset_launches()
+        t0 = time.perf_counter()
+        dc, cc = sgm.match_pair_tsgm(A, B, lo, hi, max_num_d=512, device="cuda",
+                                     stats=levels)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: v for k, v in pm_kernel.LAUNCHES.items() if v}
+        t0 = time.perf_counter()
+        dh, ch = sgm.match_pair_tsgm(A, B, lo, hi, max_num_d=512, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("OMVS_SGM_ND_LADDER")
+        else:
+            os.environ["OMVS_SGM_ND_LADDER"] = prev
+    rec = {"phase": "sgm", "check": "max_num_d 512", "hw": [120, 160], "d_range": [lo, hi],
+           "level_num_d": [lv["num_d"] for lv in levels], "launches": launches,
+           "disparity_equal": bool(np.array_equal(dc, dh, equal_nan=True)),
+           "cost_equal": bool(np.array_equal(cc.view(np.int32), ch.view(np.int32))),
+           "valid_share": float(np.isfinite(dc).mean()), "card_s": card_s, "cpu_s": cpu_s,
+           "card": card}
+    emit(rec)
+    if not (rec["disparity_equal"] and rec["cost_equal"]):
+        raise RuntimeError("match_pair_tsgm(max_num_d=512): card and CPU differ")
+    if max(rec["level_num_d"]) <= 256:
+        raise RuntimeError(f"max_num_d 512 ran levels of {rec['level_num_d']} disparities")
+    return rec
+
+
 def phase_sgm(card, scene, gts):
     """The SGM estimator on the card: dense_reconstruction with
-    DenseOptions(estimator="sgm") at full width, its quality against the
-    JAX package's, the .dimap export (fusion_mode=-1) and resume (-2), one
-    full-width pair on the card against the CPU, and that pair profiled."""
+    DenseOptions(estimator="sgm") at full width (each level a CUDA graph of
+    its shape class, captured once per call), its quality against the JAX
+    package's, the .dimap export (fusion_mode=-1) and resume (-2), one
+    full-width pair graphed, eager and on the CPU, that pair profiled both
+    ways, the kernels against their plain versions (sgm_scan also past 256
+    disparities), and a 512-disparity pair on the card against the CPU."""
     import numpy as np
     import torch
 
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import sgm
+    from openmvs_tpu_torch.ops import graphs, sgm
     from openmvs_tpu_torch.synthetic import depth_quality
 
     n = len(scene.images)
@@ -2408,21 +2636,22 @@ def phase_sgm(card, scene, gts):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        pc, wall, stages, pairs, launches = _sgm_dense(scene, opts, tmp)
+        pc, wall, stages, pairs, launches, call_graphs = _sgm_dense(scene, opts, tmp)
         peak = torch.cuda.max_memory_allocated()
         maps = _dmaps(tmp, n)
     q = [depth_quality(maps[i], gts[i]) for i in range(n)]
     est_s = sum(v for k, v in stages.items() if k.startswith("photometric pass"))
+    call_graphs["pairs_of_captured_classes"] = _check_captured_classes(pairs)
 
     with tempfile.TemporaryDirectory() as tmp:
-        pc_x, wall_x, _, pairs_x, _ = _sgm_dense(scene, DenseOptions(), tmp,
+        pc_x, wall_x, _, pairs_x, _, _ = _sgm_dense(scene, DenseOptions(), tmp,
                                                     fusion_mode=-1)
         dimaps = sorted(f for f in os.listdir(tmp) if f.endswith(".dimap"))
-        pc_r, wall_r, _, pairs_r, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
+        pc_r, wall_r, _, pairs_r, _, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
         for f in os.listdir(tmp):
             if f.endswith(".dmap"):
                 os.remove(os.path.join(tmp, f))
-        pc_d, wall_d, _, pairs_d, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
+        pc_d, wall_d, _, pairs_d, _, _ = _sgm_dense(scene, opts, tmp, fusion_mode=-2)
     export = {"export_points": len(pc_x), "export_wall_s": wall_x,
               "dimap_files": len(dimaps), "pairs_matched": len(pairs_x),
               "resume_wall_s": wall_r, "resume_points": len(pc_r),
@@ -2436,16 +2665,32 @@ def phase_sgm(card, scene, gts):
     levels = []
     disp_c, cost_c = sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda",
                                          stats=levels)
+    # graphed: each level's first run eager, the second captured, the
+    # third replayed
+    runners = graphs.Runners()
+    graphed = [sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cuda",
+                                   runners=runners) for _ in range(3)]
+    pair_graphs = _graph_summary([runners])
     t0 = time.perf_counter()
     disp_h, cost_h = sgm.match_pair_tsgm(rectA, rectB, d_lo, d_hi, device="cpu")
     cpu_s = time.perf_counter() - t0
     vs_cpu = {"disparity_equal": bool(np.array_equal(disp_c, disp_h, equal_nan=True)),
               "cost_equal": bool(np.array_equal(cost_c, cost_h)),
+              "graphed_equal_eager": [
+                  bool(np.array_equal(d, disp_c, equal_nan=True)
+                       and np.array_equal(c.view(np.int32), cost_c.view(np.int32)))
+                  for d, c in graphed],
+              "graphs": pair_graphs,
               "valid_share": float(np.isfinite(disp_c).mean()),
               "d_range": [d_lo, d_hi], "levels": levels, "cpu_s": cpu_s,
               "cpu_threads": torch.get_num_threads()}
     prof = _profile_sgm_pair(rectA, rectB, d_lo, d_hi)
+    prof_graphed = _profile_sgm_pair(rectA, rectB, d_lo, d_hi, runners=runners)
+    del runners
     _, scan_row = _sgm_scan_rows(card, rectA, rectB, d_lo, d_hi)
+    _sgm_scan_wide_rows(card)
+    _, wzncc_row = _wzncc_rows(card, rectA, rectB, d_lo)
+    wide = _sgm_wide_pair(card, rectA, rectB, d_lo, d_hi)
 
     H, W = scene.images[0].gray.shape
     rec = {"phase": "sgm", "views": n, "H": H, "W": W,
@@ -2461,14 +2706,16 @@ def phase_sgm(card, scene, gts):
                               for p in pairs],
            "max_memory_allocated_bytes": peak, "kernel_launches": launches,
            "sgm_scan_launches": launches["sgm_scan"], "sgm_scan_aggregate8": scan_row,
+           "wzncc_volume_launches": launches["wzncc_volume"], "graphs": call_graphs,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
            "jax_accuracy": JAX_SGM_ACCURACY, "jax_completeness": JAX_SGM_COMPLETENESS,
            "export_resume": export, "pair_card_vs_cpu": vs_cpu, "pair_profile": prof,
+           "pair_profile_graphed": prof_graphed, "max_num_d_512": wide,
            "card": card}
     emit(rec)
     if len(pc) == 0 or len(maps) != n:
         raise RuntimeError(f"SGM densify gave {len(maps)} maps and {len(pc)} points")
-    if any(n for k, n in launches.items() if k != "sgm_scan"):
+    if any(n for k, n in launches.items() if k not in ("sgm_scan", "wzncc_volume")):
         raise RuntimeError(f"the SGM path launched PatchMatch kernels: {launches}")
     for i, (acc, comp) in enumerate(q):
         if acc < 0.95 * JAX_SGM_ACCURACY[i] or comp < 0.95 * JAX_SGM_COMPLETENESS[i]:
@@ -2483,9 +2730,22 @@ def phase_sgm(card, scene, gts):
         raise RuntimeError(f"SGM export/resume failed: {export}")
     if not (vs_cpu["disparity_equal"] and vs_cpu["cost_equal"]):
         raise RuntimeError("SGM pair: card and CPU disparities or costs differ")
-    if not launches["sgm_scan"]:
-        raise RuntimeError("the SGM path launched no sgm_scan")
-    return scan_row, launches
+    if not all(vs_cpu["graphed_equal_eager"]):
+        raise RuntimeError(f"SGM pair: graphed runs differ from the eager one: "
+                           f"{vs_cpu['graphed_equal_eager']}")
+    if not (pair_graphs["captures"] and pair_graphs["replays"]):
+        raise RuntimeError(f"SGM pair: no level captured or replayed: {pair_graphs}")
+    if (prof_graphed["captures"] or not prof_graphed["graph_replays"]
+            or prof_graphed["host_kernel_launches"] >= prof["host_kernel_launches"]):
+        raise RuntimeError(f"SGM pair graphed: {prof_graphed['captures']} captures, "
+                           f"{prof_graphed['graph_replays']} replays, "
+                           f"{prof_graphed['host_kernel_launches']} host launches against "
+                           f"{prof['host_kernel_launches']} eager")
+    if not (launches["sgm_scan"] and launches["wzncc_volume"]):
+        raise RuntimeError(f"the SGM path launched no sgm_scan or wzncc_volume: {launches}")
+    if not (call_graphs["captures"] and call_graphs["replays"]):
+        raise RuntimeError(f"the SGM call captured or replayed no level: {call_graphs}")
+    return {"sgm_scan": scan_row, "wzncc_volume": wzncc_row}, launches
 
 
 def _reconstruct(scene, pc):
@@ -3913,7 +4173,8 @@ def main():
     phase_geom_unfused(card, phase_parity(card))
     rows["segment_sum"], launches["refine"] = phase_refine(card, scene)
     phase_texture(card, colored)
-    rows["sgm_scan"], launches["sgm"] = phase_sgm(card, scene, gts)
+    sgm_rows, launches["sgm"] = phase_sgm(card, scene, gts)
+    rows.update(sgm_rows)
     textured = phase_pipeline(card, scene, colored, dense)
     with tempfile.TemporaryDirectory() as folder:
         files = phase_files(card, folder)

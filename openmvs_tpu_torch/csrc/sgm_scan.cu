@@ -27,15 +27,23 @@
 // at column 0 at step t0 > 0 starts from a carry of BIG. There are M + N - 1
 // diagonals per b.
 //
-// Design: one warp per line. Lane l holds the carry of d = 32 j + l for
-// j < K = ceil(D / 32) in registers (K <= 8: D <= 256, SGM's max_num_d);
-// lanes past D hold BIG, which is the out-of-range neighbour of d = D - 1.
-// The minimum over d is a butterfly of shuffles (min is exact, so its order
-// does not matter); d - 1 and d + 1 come from shuffles of the same register
-// and, across a 32-column boundary, of the neighbouring one. No shared
-// memory, no barrier. Loads of a step's costs and P2 are issued one step
-// ahead, so the carry's dependency chain does not wait on memory. Loads and
-// stores of a step are coalesced: lane l touches d = 32 j + l.
+// Design: one warp per line. For D <= REG_D (256), lane l holds the carry
+// of d = 32 j + l for j < K = ceil(D / 32) in registers (K <= 8); lanes past
+// D hold BIG, which is the out-of-range neighbour of d = D - 1. The minimum
+// over d is a butterfly of shuffles (min is exact, so its order does not
+// matter); d - 1 and d + 1 come from shuffles of the same register and,
+// across a 32-column boundary, of the neighbouring one. No shared memory,
+// no barrier. Loads of a step's costs and P2 are issued one step ahead, so
+// the carry's dependency chain does not wait on memory. Loads and stores
+// of a step are coalesced: lane l touches d = 32 j + l.
+//
+// Above REG_D the carry is the row the warp wrote at the previous step: it
+// lies in `out`, and __syncwarp() makes each lane's stores visible to the
+// others. A step takes two passes over d in chunks of 32 lanes, one for
+// the minimum of the carry and one for the new row, which reads the carry
+// at d - 1, d and d + 1 back from `out` (BIG outside [0, D)). The adds and
+// minima are the register path's, so both paths give the same bits; D is
+// bounded by device memory only.
 //
 // Bound on an H100: bytes. Each pass reads xs and p2s once and writes out
 // once: for aggregate8 at 480x640 with D = 64 and 8 passes over 2 images,
@@ -50,7 +58,8 @@
 
 #include <cuda_runtime.h>
 
-#define MAX_D 256
+// the most disparities whose carry a warp keeps in registers
+#define REG_D 256
 
 namespace {
 
@@ -166,6 +175,62 @@ sgm_scan_kernel(const float* __restrict__ xs, const float* __restrict__ p2s,
   }
 }
 
+// D > REG_D: the carry read back from `out` (see the design note above).
+template <bool DIAG>
+__global__ void __launch_bounds__(WARPS * 32)
+sgm_scan_wide_kernel(const float* __restrict__ xs, const float* __restrict__ p2s,
+                     float* out, int N, int M, int D, float p1, int shift,
+                     long long n_lines) {
+  const int lane = threadIdx.x & 31;
+  const long long line = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (line >= n_lines) return;  // the whole warp leaves together
+  const int per_b = shift ? M + N - 1 : M;
+  const long long b = line / per_b;
+  const int q = (int)(line - b * per_b);
+  int t = 0, m = q;
+  if (shift) {
+    t = N - 1 - q > 0 ? N - 1 - q : 0;
+    m = q - (N - 1) + t;
+  }
+  auto row_of = [&](int tt, int mm) { return (b * N + tt) * M + mm; };
+
+  // the previous step's row, or null while the carry is BIG everywhere (a
+  // diagonal entering at column 0 after step 0)
+  const float* carry = nullptr;
+  if (t == 0) {
+    const long long base = row_of(0, m) * D;
+    for (int d = lane; d < D; d += 32) out[base + d] = xs[base + d];
+    carry = out + base;
+    t = 1;
+    m += shift;
+  }
+  for (; t < N && m < M; ++t, m += shift) {
+    __syncwarp();  // the carry row's stores, made by every lane, are visible
+    const long long base = row_of(t, m) * D;
+    const float p2 = p2s[row_of(t, m)];
+    float mn = BIG;  // the minimum of a carry that is BIG everywhere
+    if (carry) {
+      mn = __int_as_float(0x7f800000);  // +inf
+      for (int d = lane; d < D; d += 32) mn = fminf(mn, carry[d]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mn = fminf(mn, __shfl_xor_sync(FULL, mn, off));
+    }
+    const float a = mn + p2;
+    const float mn_half = fminf(mn, BIG * 0.5f);
+    for (int d = lane; d < D; d += 32) {
+      const float lp = carry ? carry[d] : BIG;
+      const float lo = carry && d > 0 ? carry[d - 1] : BIG;
+      const float hi = carry && d < D - 1 ? carry[d + 1] : BIG;
+      float best = fminf(lp, a);
+      best = fminf(best, fminf(lo, hi) + p1);
+      const float L = xs[base + d] + best;
+      out[base + d] = DIAG ? fminf(L - mn_half, BIG) : L - mn;
+    }
+    carry = out + base;
+  }
+}
+
 template <bool DIAG>
 cudaError_t launch(int K, dim3 grid, cudaStream_t s, const float* xs,
                    const float* p2s, float* out, int N, int M, int D, float p1,
@@ -185,7 +250,8 @@ cudaError_t launch(int K, dim3 grid, cudaStream_t s, const float* xs,
     SCAN_CASE(7)
     SCAN_CASE(8)
     default:
-      return cudaErrorInvalidValue;
+      sgm_scan_wide_kernel<DIAG><<<grid, WARPS * 32, 0, s>>>(
+          xs, p2s, out, N, M, D, p1, shift, n_lines);
   }
 #undef SCAN_CASE
   return cudaGetLastError();
@@ -195,23 +261,23 @@ cudaError_t launch(int K, dim3 grid, cudaStream_t s, const float* xs,
 
 extern "C" {
 
-int sgm_scan_max_d() { return MAX_D; }
+int sgm_scan_reg_d() { return REG_D; }
 
 // Launch the B passes on `stream`: out (B, N, M, D) from xs (B, N, M, D) and
-// p2s (B, N, M), contiguous float32 on the card, with 1 <= D <= MAX_D,
-// shift 0 or 1 and diag 0 or 1. Returns the CUDA error of the launch
+// p2s (B, N, M), contiguous float32 on the card, with D >= 1, shift 0 or 1
+// and diag 0 or 1. Returns the CUDA error of the launch
 // (0 = success); does not synchronise.
 int sgm_scan_launch(const float* xs, const float* p2s, float* out, int B,
                     int N, int M, int D, float p1, int shift, int diag,
                     void* stream) {
-  if (B < 0 || N < 0 || M < 0 || D < 1 || D > MAX_D || (shift != 0 && shift != 1))
+  if (B < 0 || N < 0 || M < 0 || D < 1 || (shift != 0 && shift != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * N * M == 0) return 0;
   const long long n_lines = (long long)B * (shift ? (long long)M + N - 1 : M);
   const long long blocks = (n_lines + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
-  const int K = (D + 31) / 32;
+  const int K = D <= REG_D ? (D + 31) / 32 : 0;  // 0: the wide kernel
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       diag ? launch<true>(K, grid, s, xs, p2s, out, N, M, D, p1, shift, n_lines)

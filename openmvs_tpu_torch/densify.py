@@ -458,6 +458,8 @@ def estimate_depth_map_sgm(
     opts: DenseOptions,
     dimap_dir: Optional[str] = None,
     device="cuda",
+    runners: Optional[graphs.Runners] = None,
+    _eager: bool = False,
 ) -> Optional[DepthMapResult]:
     """Depth from tSGM stereo fused over all scored neighbour pairs
     (SemiGlobalMatcher::Match + ::Fuse, SemiGlobalMatcher.cpp:530-737,739):
@@ -466,8 +468,19 @@ def estimate_depth_map_sgm(
     then cluster-fuse the pair depth maps in the reference frame (largest
     agreeing trust regions, min_views gate). With ``dimap_dir`` each pair's
     disparities are cached as a ``.dimap`` file and read back instead of
-    matched when present (Match's File::isPresent skip)."""
+    matched when present (Match's File::isPresent skip).
+
+    On the card each matching level runs as a CUDA graph of its shape
+    class (``sgm.LevelProgram``): ``runners`` (a ``dense_reconstruction``
+    call's) keeps them across calls, else this call captures its own. On
+    the CPU the levels run op by op unless ``runners`` is given (the
+    programs' CPU form). ``_eager`` runs them op by op on the card too, the
+    reference the graphs are checked against."""
     dev = devmod.resolve(device)
+    if _eager or (runners is None and dev.type != "cuda"):
+        runners = None
+    elif runners is None:
+        runners = graphs.Runners()
     img = scene.images[ref_idx]
     neighbors = img.meta.view_scores
     if not neighbors:
@@ -512,7 +525,7 @@ def estimate_depth_map_sgm(
                 p1=opts.sgm_p1, p2=opts.sgm_p2, alpha=opts.sgm_p2_alpha,
                 beta=opts.sgm_p2_beta,
                 subpixel_mode=opts.sgm_subpixel_mode,
-                num_dirs=opts.sgm_num_dirs, device=dev,
+                num_dirs=opts.sgm_num_dirs, device=dev, runners=runners,
             )
             if cache:
                 Q = np.eye(4)
@@ -771,7 +784,8 @@ def dense_reconstruction(
                     if scene.images[i].meta.id not in resumed]
             if use_sgm:
                 est = lambda i, d: estimate_depth_map_sgm(scene, i, opts,
-                                                          dimap_dir=save_dmaps_to, device=d)
+                                                          dimap_dir=save_dmaps_to, device=d,
+                                                          runners=runners, _eager=_eager)
             else:
                 est = lambda i, d: estimate_depth_map(scene, i, opts, defer_download=True,
                                                       device=d, runners=runners,

@@ -31,7 +31,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_TEXELS = 128
 MAX_VIEWS = 12  # DenseOptions.max_views: the multi-view kernels' limit
 V2_MAX_TEXELS = 96  # K1-v2 stages the tile's weights of at most this many texels
-SGM_MAX_D = 256  # sgm_scan keeps at most this many disparities in a warp's registers
+SGM_REG_D = 256  # sgm_scan keeps the carry in registers up to this many disparities
+WZNCC_MAX_TEXELS = 64  # wzncc_volume holds a pixel's weights in two registers a lane
 
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every exported function, by library (source stem)
@@ -107,7 +108,18 @@ SIGNATURES = {
             F, I, I,            # p1, shift, diag
             P,                  # stream
         ],
-        "sgm_scan_max_d": [],
+        "sgm_scan_reg_d": [],
+    },
+    "wzncc_volume": {
+        "wzncc_volume_launch": [
+            P, P, P, P,         # w, tw (T, B, H, W), sum_w, norm_sq0 (B, H, W)
+            P, P, P, P,         # right (B, H, W), d_mins (B,), lo, hi (B, H, W) or null
+            P,                  # out (B, H, W, D)
+            I, I, I, I,         # B, H, W, D
+            I, I, I,            # half_x, half_y, k_split
+            P,                  # stream
+        ],
+        "wzncc_volume_max_texels": [],
     },
     "segment_sum": {
         "segment_sum_launch": [
@@ -211,7 +223,8 @@ def _load(name: str) -> ctypes.CDLL:
               "pm_score_views": ("pm_views_max_views", MAX_VIEWS),
               "pm_geom_views": ("pm_geom_views_max_views", MAX_VIEWS),
               "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS),
-              "sgm_scan": ("sgm_scan_max_d", SGM_MAX_D)}
+              "sgm_scan": ("sgm_scan_reg_d", SGM_REG_D),
+              "wzncc_volume": ("wzncc_volume_max_texels", WZNCC_MAX_TEXELS)}
     if name in limits:
         fn, want = limits[name]
         if getattr(lib, fn)() != want:

@@ -38,9 +38,10 @@ graph it captured until it goes. On the CPU a runner runs each program's
 body directly on the same static buffers (its CPU form, which the tests
 hold against the eager functions).
 
-Refinement's iteration (``refine.IterProgram``) is the runner's second
-user: it keeps its own buffers and captures through ``capture`` and
-``replay``.
+Refinement's iteration (``refine.IterProgram``) and SGM's matching level
+(``sgm.LevelProgram``, one per shape class, kept by the runner through
+``kept``) are its other users: each keeps its own buffers and captures
+through ``capture`` and ``replay``.
 
 Threads: ``Runners`` gives each (thread, device) its own runner, so worker
 threads share no buffer and no pool. Captures hold a process-wide lock and
@@ -207,6 +208,16 @@ class Runner:
             prog.body()
             return
         self.replay(prog.graph, prog.effects)
+
+    def kept(self, key: tuple, make):
+        """The object ``make()`` built at this runner's first call with
+        ``key``, kept as long as the runner: another module's device
+        program (``sgm.LevelProgram``), which captures through ``capture``
+        and ``replay``."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = make()
+        return prog
 
     def replay(self, graph: torch.cuda.CUDAGraph, effects: list) -> None:
         """Replay ``graph`` on the current stream, then run the host

@@ -71,7 +71,7 @@ LAUNCHES = {"score_views_exact": 0, "score_views_nn": 0,
             "score_view_geom_exact": 0, "score_view_geom_nn": 0,
             "geom_term": 0, "geom_terms": 0,
             "score_view_v2_exact": 0, "score_view_v2_nn": 0,
-            "sgm_scan": 0, "segment_sum": 0}
+            "sgm_scan": 0, "segment_sum": 0, "wzncc_volume": 0}
 # score_views' geometric modes, as the kernel numbers them
 _GEOM_MODES = {"none": 0, "geom": 1, "pre": 2}
 # image rows of one band of the scorer's band flags: the JAX package's

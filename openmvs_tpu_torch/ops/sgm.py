@@ -8,25 +8,34 @@ cross-check and sub-pixel refinement; ``match_pair_tsgm`` is the
 coarse-to-fine driver of densify's SGM estimator.
 
 The JAX package reaches no Pallas kernel here (its volumes and scans are
-XLA-jitted jnp). Its jitted scans, one ``lax.scan`` a directional pass,
-become one launch of the hand-written kernel ``csrc/sgm_scan.cu`` for
-every batch of passes on the card (``sgm_scan``); the rest of the device
-part is plain PyTorch on the tensors' device:
+XLA-jitted jnp). On the card two hand-written kernels take its jitted
+programs' work: ``csrc/wzncc_volume.cu`` computes the masked WZNCC cost
+volumes of a batch of pairs in one launch (``wzncc_volume_masked``, for
+``_wzncc_volume0`` and ``mask_volume``), and ``csrc/sgm_scan.cu`` runs
+every batch of directional DP passes in one launch (``sgm_scan``, for
+``aggregate8``'s ``lax.scan``s). Each has a plain version that the CPU
+runs and the kernel repeats op for op:
 
-* the cost volume is accumulated per texel offset over chunks of
-  disparities, never one launch per disparity;
+* the plain cost volume (``_wzncc_volumes``) is accumulated per texel
+  offset over chunks of disparities, never one launch per disparity, and
+  masked per pair by ``mask_volume``;
 * each batch of DP passes has one (B, N, M, D) layout: the forward and
   reverse passes of an axis, the four diagonal passes (a dx = -1 pass is a
   dx = +1 pass over the column-flipped volume) and, in ``match_pair_tsgm``,
-  the left and right matches of a level. On the card it is one
-  ``sgm_scan`` launch; on the CPU its plain version,
-  ``_scan_passes_plain``, a Python loop over rows or columns with a
-  (B, M, D) carry, whose arithmetic the kernel repeats op for op;
+  the left and right matches of a level. Its plain version,
+  ``_scan_passes_plain``, is a Python loop over rows or columns with a
+  (B, M, D) carry; any D runs on both;
 * the passes are summed in the JAX order, and where XLA's CPU backend
   fuses a multiply-add or evaluates exp its own way the port does the same
   (``utils/fmath``), so the card equals the CPU to the bit. Only rsqrt is
   rounded correctly here: XLA refines the CPU's hardware estimate, which
   no other device repeats.
+
+A matching level (``_level_body``: the weights, both directions' masked
+volumes, ``aggregate8`` and the winners) runs op by op
+(``_match_level``) or, given a ``graphs.Runners``, as its shape class's
+``LevelProgram``: one CUDA graph replayed over static buffers on the card.
+``wzncc_weights`` stays plain PyTorch inside it.
 
 Host steps stay numpy and scipy, as in the JAX package: the range maps,
 the disparity flip, the sub-pixel fits, the speckle filter (OpenCV's
@@ -215,9 +224,6 @@ def _sgm_scan_launch(xs, p2s, p1, shift, diag) -> torch.Tensor:
     if xs.device.type != "cuda":
         raise ValueError(f"sgm_scan kernel: tensors on {xs.device}, expected cuda")
     B, N, M, D = xs.shape
-    if not 1 <= D <= _build.SGM_MAX_D:
-        raise ValueError(f"sgm_scan kernel: {D} disparities, expected 1 to "
-                         f"{_build.SGM_MAX_D}")
     out = torch.empty_like(xs)
     lib = _build.library("sgm_scan")
     with torch.cuda.device(xs.device):
@@ -337,7 +343,7 @@ def aggregate(cost: torch.Tensor, image: torch.Tensor, p1: float = 1.0,
               p2: float = 8.0, alpha: float = 2.0, num_dirs: int = 4) -> torch.Tensor:
     """Sum of the 4 axis-aligned DP passes (beta 0.1) over an (H, W, D)
     float volume; ``num_dirs`` is accepted and ignored, as in the JAX
-    package. On the card D is at most 256 (``sgm_scan`` raises above)."""
+    package."""
     return _aggregate(cost[None], image[None], p1, p2, alpha, 0.1, False)[0]
 
 
@@ -349,7 +355,7 @@ def aggregate8(cost_u8: torch.Tensor, image: torch.Tensor, p1: float = 3.0,
     runs its 4 directions forward and backward, SemiGlobalMatcher.cpp:
     1203-1265). ``cost_u8`` may be (H, W, D) with an (H, W) image, or a
     batch (B, H, W, D) with (B, H, W) images, aggregated in one set of
-    scans. On the card D is at most 256 (``sgm_scan`` raises above)."""
+    scans."""
     single = cost_u8.dim() == 3
     cost = cost_u8.to(torch.float32)
     if single:
@@ -535,10 +541,18 @@ def _wzncc_volumes(lefts: torch.Tensor, rights_shifted: torch.Tensor,
     shape, each right image already shifted by its d_min columns (the JAX
     package's ``_wzncc_volume0`` layout). Per chunk of disparities the
     49-texel sums accumulate texel by texel in XLA's order (``_XlaSum``)."""
-    B, H, W = lefts.shape
-    dev = lefts.device
-    eps = _f32(1e-3)
     w, tw, sum_w, norm_sq0 = wzncc_weights(lefts, half_x, half_y)
+    return _wzncc_volumes_weighted(w, tw, sum_w, norm_sq0, rights_shifted, d_mins,
+                                   num_d, half_x, half_y)
+
+
+def _wzncc_volumes_weighted(w, tw, sum_w, norm_sq0, rights_shifted: torch.Tensor,
+                            d_mins: Sequence[int], num_d: int, half_x: int,
+                            half_y: int) -> torch.Tensor:
+    """``_wzncc_volumes`` from the left images' ``wzncc_weights``."""
+    B, H, W = rights_shifted.shape
+    dev = rights_shifted.device
+    eps = _f32(1e-3)
     offs = _texel_offsets(half_x, half_y)
     pad = max(half_x, half_y)
     lo_pad = num_d - 1 + half_x + pad
@@ -571,6 +585,97 @@ def _wzncc_volumes(lefts: torch.Tensor, rights_shifted: torch.Tensor,
         c = torch.where(bad[:, :, None, :], 255.0, c)
         vol[..., i0:i0 + n] = c.to(torch.uint8).permute(0, 2, 3, 1)
     return vol
+
+
+def wzncc_volume_masked(w: torch.Tensor, tw: torch.Tensor, sum_w: torch.Tensor,
+                        norm_sq0: torch.Tensor, rights: torch.Tensor,
+                        d_mins: torch.Tensor, num_d: int,
+                        lo: Optional[torch.Tensor] = None,
+                        hi: Optional[torch.Tensor] = None, half_x: int = 3,
+                        half_y: int = 3) -> torch.Tensor:
+    """The kernel's wrapper: (B, H, W, num_d) uint8 masked WZNCC volumes of
+    B pairs, ``mask_volume(_wzncc_volumes(...))`` per pair, from the left
+    images' ``wzncc_weights`` (w and tw (T, B, H, W), sum_w and norm_sq0
+    (B, H, W)), the UNSHIFTED right images (B, H, W) float32, their d_min
+    as a (B,) int32 tensor and, optionally, the per-pixel windows lo and
+    hi (B, H, W) int16 (None: no window). All contiguous on one device.
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/wzncc_volume.cu`` or raise. d_mins on the device lets one CUDA
+    graph serve any pair of a shape class."""
+    if rights.dim() != 3:
+        raise ValueError(f"rights: {rights.dim()}-D, expected (B, H, W)")
+    B, H, W = rights.shape
+    T = (2 * half_x + 1) * (2 * half_y + 1)
+    if (lo is None) != (hi is None):
+        raise ValueError("lo and hi: give both or neither")
+    checks = [("w", w, (T, B, H, W), torch.float32), ("tw", tw, (T, B, H, W), torch.float32),
+              ("sum_w", sum_w, (B, H, W), torch.float32),
+              ("norm_sq0", norm_sq0, (B, H, W), torch.float32),
+              ("rights", rights, (B, H, W), torch.float32),
+              ("d_mins", d_mins, (B,), torch.int32)]
+    if lo is not None:
+        checks += [("lo", lo, (B, H, W), torch.int16), ("hi", hi, (B, H, W), torch.int16)]
+    for name, t, shape, dtype in checks:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        if t.device != rights.device:
+            raise ValueError(f"{name}: on {t.device}, expected {rights.device}")
+    if num_d < 1:
+        raise ValueError(f"num_d {num_d}: expected at least 1")
+    if rights.device.type == "cpu":
+        return _wzncc_volume_plain(w, tw, sum_w, norm_sq0, rights, d_mins, num_d, lo, hi,
+                                   half_x, half_y)
+    return _wzncc_volume_launch(w, tw, sum_w, norm_sq0, rights, d_mins, num_d, lo, hi,
+                                half_x, half_y)
+
+
+def _wzncc_volume_plain(w, tw, sum_w, norm_sq0, rights, d_mins, num_d, lo, hi,
+                        half_x, half_y) -> torch.Tensor:
+    """``wzncc_volume_masked``'s plain version: each right image shifted
+    by its d_min, ``_wzncc_volumes``' loop, then ``mask_volume``."""
+    dm = [int(d) for d in d_mins.tolist()]
+    shifted = torch.stack([_shift_right(r, d) for r, d in zip(rights, dm)])
+    vol = _wzncc_volumes_weighted(w, tw, sum_w, norm_sq0, shifted, dm, num_d,
+                                  half_x, half_y)
+    if lo is None:
+        return vol
+    return torch.stack([mask_volume(v, lo_b, hi_b, d)
+                        for v, lo_b, hi_b, d in zip(vol, lo, hi, dm)])
+
+
+def _xla_split(n: int) -> int:
+    """The terms of an n-term ``_XlaSum`` (n <= 64) that its first partial
+    sum takes: all of them up to 32."""
+    return n if n <= 32 else 32 - _XlaSum(n).low
+
+
+def _wzncc_volume_launch(w, tw, sum_w, norm_sq0, rights, d_mins, num_d, lo, hi,
+                         half_x, half_y) -> torch.Tensor:
+    """The card route of ``wzncc_volume_masked`` (operands already
+    checked)."""
+    if rights.device.type != "cuda":
+        raise ValueError(f"wzncc_volume kernel: tensors on {rights.device}, expected cuda")
+    T = (2 * half_x + 1) * (2 * half_y + 1)
+    if T > _build.WZNCC_MAX_TEXELS:
+        raise ValueError(f"wzncc_volume kernel: {T} texels, expected at most "
+                         f"{_build.WZNCC_MAX_TEXELS}")
+    B, H, W = rights.shape
+    out = torch.empty((B, H, W, num_d), dtype=torch.uint8, device=rights.device)
+    lib = _build.library("wzncc_volume")
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    with torch.cuda.device(rights.device):
+        rc = lib.wzncc_volume_launch(
+            ptr(w), ptr(tw), ptr(sum_w), ptr(norm_sq0), ptr(rights), ptr(d_mins),
+            ptr(lo), ptr(hi), ptr(out), B, H, W, num_d, half_x, half_y, _xla_split(T),
+            ctypes.c_void_p(torch.cuda.current_stream(rights.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"wzncc_volume_launch failed: {_build.error_string(rc)}")
+    count_launch("wzncc_volume")
+    return out
 
 
 def _shift_right(right: torch.Tensor, d_min: int) -> torch.Tensor:
@@ -802,30 +907,113 @@ def _speckle_filter(disp: np.ndarray, max_size: int = 100,
     return out
 
 
-def _match_level(A: np.ndarray, B: np.ndarray, lo, hi, loR, hiR, l_min: int,
-                 num_d: int, p1, p2, alpha, beta, num_dirs, subpixel: bool,
-                 dev):
-    """One tSGM level on ``dev``: both directions' masked WZNCC volumes and
-    their DP in one batch, then the winners. Returns (left disparities,
-    left winner costs, right disparities, and with ``subpixel`` the left
-    winner's two neighbouring costs) as numpy, the only data the host
-    steps read."""
-    r_min = -(l_min + num_d - 1)
-    imgs = torch.as_tensor(np.stack([A, B]).astype(np.float32), device=dev)
-    rights = torch.stack([_shift_right(imgs[1], l_min), _shift_right(imgs[0], r_min)])
-    vols = _wzncc_volumes(imgs, rights, [l_min, r_min], num_d)
-    for b, (lo_b, hi_b, d0) in enumerate(((lo, hi, l_min), (loR, hiR, r_min))):
-        vols[b] = mask_volume(vols[b], torch.as_tensor(lo_b, device=dev),
-                              torch.as_tensor(hi_b, device=dev), d0)
+def _level_body(imgs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                dmins: torch.Tensor, num_d: int, p1, p2, alpha, beta, num_dirs,
+                subpixel: bool) -> List[torch.Tensor]:
+    """One tSGM level's device work on (2, hs, ws) images (left, right),
+    the (2, hs, ws) windows of the left and right matches and their
+    d_mins (2,) int32: the masked WZNCC volumes of both directions (right
+    image of one = left image of the other), their DP in one batch and
+    the winners. Returns (left winner indices, left winner costs, right
+    winner indices, and with ``subpixel`` the left winner's two
+    neighbouring costs). No host read, so it can be captured."""
+    w, tw, sum_w, norm_sq0 = wzncc_weights(imgs)
+    vols = wzncc_volume_masked(w, tw, sum_w, norm_sq0, imgs.flip(0), dmins, num_d, lo, hi)
     agg = aggregate8(vols, imgs, p1, p2, alpha, num_dirs, beta)
     idx, cost = _argmin_first(agg)
-    out = [idx[0] + l_min, cost[0], idx[1] + r_min]
+    out = [idx[0], cost[0], idx[1]]
     if subpixel:
         D = agg.shape[-1]
         for step in (-1, 1):
             j = torch.clamp(idx[0] + step, 0, D - 1)
             out.append(torch.gather(agg[0], -1, j[..., None])[..., 0])
-    return [t.cpu().numpy() for t in out]
+    return out
+
+
+def _level_inputs(A, B, lo, hi, loR, hiR, l_min: int, num_d: int):
+    """The host arrays of ``_level_body``'s inputs: images, lo, hi,
+    d_mins (the right match's d_min is -(l_min + num_d - 1))."""
+    return (np.stack([A, B]).astype(np.float32), np.stack([lo, loR]).astype(np.int16),
+            np.stack([hi, hiR]).astype(np.int16),
+            np.array([l_min, -(l_min + num_d - 1)], np.int32))
+
+
+def _level_result(out: Sequence[torch.Tensor], l_min: int, num_d: int) -> List[np.ndarray]:
+    """``_level_body``'s outputs as numpy with the winner indices made
+    disparities: (left disparities, left winner costs, right disparities,
+    the neighbouring costs)."""
+    res = [t.cpu().numpy() for t in out]
+    res[0] = res[0] + l_min
+    res[2] = res[2] + -(l_min + num_d - 1)
+    return res
+
+
+def _match_level(A: np.ndarray, B: np.ndarray, lo, hi, loR, hiR, l_min: int,
+                 num_d: int, p1, p2, alpha, beta, num_dirs, subpixel: bool,
+                 dev):
+    """One tSGM level on ``dev``, launched op by op (``_level_body``).
+    Returns (left disparities, left winner costs, right disparities, and
+    with ``subpixel`` the left winner's two neighbouring costs) as numpy,
+    the only data the host steps read."""
+    ins = [torch.as_tensor(a, device=dev)
+           for a in _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)]
+    out = _level_body(*ins, num_d, p1, p2, alpha, beta, num_dirs, subpixel)
+    return _level_result(out, l_min, num_d)
+
+
+class LevelProgram:
+    """One tSGM level of a shape class (hs, ws, num_d, num_dirs,
+    subpixel, p1, p2, alpha, beta) as a device program over static
+    buffers: the counterpart of the JAX package's jitted ``_wzncc_volume0``,
+    ``mask_volume`` and ``aggregate8`` for one level. Eagerly a level is
+    some 4,000 launches from Python; on a card the program captures
+    ``_level_body`` once as a CUDA graph (``graphs.Runner``: its lock, pool
+    and stream) and each later ``run`` is one replay.
+
+    Buffers: the two images, lo and hi of both matches and their d_mins,
+    filled with ``copy_`` before each run, so one graph serves every pair
+    of the class; the outputs, copied into static buffers by the body. The
+    first run of a program runs its body eagerly (libraries initialise
+    lazily on a first call, which a capture does not permit); on a card the
+    second captures it and every later run replays it. On the CPU every run
+    runs the body on the same buffers (the program's CPU form). A capture
+    or replay that fails raises."""
+
+    def __init__(self, runner, hs: int, ws: int, num_d: int, p1, p2, alpha, beta,
+                 num_dirs: int, subpixel: bool):
+        dev = runner.device
+        self.runner = runner
+        self.args = (num_d, p1, p2, alpha, beta, num_dirs, subpixel)
+        self.ins = (torch.zeros((2, hs, ws), dtype=torch.float32, device=dev),
+                    torch.zeros((2, hs, ws), dtype=torch.int16, device=dev),
+                    torch.zeros((2, hs, ws), dtype=torch.int16, device=dev),
+                    torch.zeros(2, dtype=torch.int32, device=dev))
+        self.outs: Optional[List[torch.Tensor]] = None
+        self.graph = None
+        self.effects: list = []
+        self.runs = 0
+
+    def _body(self) -> None:
+        out = _level_body(*self.ins, *self.args)
+        if self.outs is None:
+            self.outs = [t.clone() for t in out]
+        else:
+            for dst, src in zip(self.outs, out):
+                dst.copy_(src)
+
+    def run(self, A, B, lo, hi, loR, hiR, l_min: int) -> List[np.ndarray]:
+        """``_match_level``'s result for one pair of the class."""
+        num_d = self.args[0]
+        for dst, src in zip(self.ins, _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)):
+            dst.copy_(torch.from_numpy(src))
+        if self.graph is None and self.runs > 0 and self.ins[0].is_cuda:
+            self.graph = self.runner.capture(self._body, self.effects)
+        if self.graph is None:
+            self._body()
+        else:
+            self.runner.replay(self.graph, self.effects)
+        self.runs += 1
+        return _level_result(self.outs, l_min, num_d)
 
 
 def match_pair_tsgm(
@@ -839,6 +1027,7 @@ def match_pair_tsgm(
     max_num_d: int = 256,
     device="cuda",
     stats: Optional[list] = None,
+    runners=None,
 ):
     """Coarse-to-fine tSGM on a rectified pair (SemiGlobalMatcher::Match,
     SemiGlobalMatcher.cpp:530-737): per-pixel disparity windows from the
@@ -848,14 +1037,14 @@ def match_pair_tsgm(
 
     d_lo/d_hi: full-resolution global disparity bounds (e.g. from sparse
     matches). The volumes and scans run on ``device``; ``stats``, a list,
-    gets one record per level (shape, num_d, seconds). On the card
-    ``max_num_d`` is at most 256, the disparities ``sgm_scan`` holds.
+    gets one record per level (shape, num_d, seconds). With ``runners``
+    (a ``graphs.Runners``) each level runs as its shape class's
+    ``LevelProgram`` (on a card a CUDA graph, kept by the runner for later
+    pairs), else op by op (``_match_level``).
     Returns (disparity float32 with NaN invalid, accumulated winner cost
     float32)."""
     dev = devmod.resolve(device)
-    if dev.type == "cuda" and max_num_d > _build.SGM_MAX_D:
-        raise ValueError(f"max_num_d {max_num_d}: sgm_scan on the card takes at most "
-                         f"{_build.SGM_MAX_D} disparities")
+    runner = None if runners is None else runners.get(dev)
     H, W = rectA.shape
     if H == 0 or W == 0:
         # degenerate rectified pair (extreme geometry can collapse a level):
@@ -938,8 +1127,13 @@ def match_pair_tsgm(
 
         last = li == len(scales) - 1
         sub = last and subpixel_mode not in ("na", None)
-        res = _match_level(A, B, lo, hi, loR, hiR, l_min, num_d, p1, p2, alpha,
-                           beta, num_dirs, sub, dev)
+        if runner is None:
+            res = _match_level(A, B, lo, hi, loR, hiR, l_min, num_d, p1, p2, alpha,
+                               beta, num_dirs, sub, dev)
+        else:
+            cls = (hs, ws, num_d, p1, p2, alpha, beta, num_dirs, sub)
+            prog = runner.kept(("sgm_level",) + cls, lambda: LevelProgram(runner, *cls))
+            res = prog.run(A, B, lo, hi, loR, hiR, l_min)
         dintL, costL, dintR = res[0].astype(np.int32), res[1], res[2].astype(np.int32)
         if sub:
             dsub = _subpixel(costL, res[3], res[4], dintL, subpixel_mode)

@@ -536,8 +536,8 @@ def sgm_pairs_sharded(lefts: np.ndarray, rights_shifted: np.ndarray, d_min: int,
     talks to another.
 
     lefts/rights_shifted: (P, H, W) float32, rights pre-shifted by d_min
-    columns. Returns (disp int32 (P, H, W) absolute disparities, cost
-    float32 (P, H, W))."""
+    columns and zero filled (``sgm._shift_right``). Returns (disp int32
+    (P, H, W) absolute disparities, cost float32 (P, H, W))."""
     from openmvs_tpu_torch.ops import sgm
     from openmvs_tpu_torch.parallel.mesh import resolve_device
 
@@ -550,7 +550,12 @@ def sgm_pairs_sharded(lefts: np.ndarray, rights_shifted: np.ndarray, d_min: int,
         sl = slice(part.start, part.stop)
         left = torch.from_numpy(np.ascontiguousarray(lefts[sl], np.float32)).to(dev)
         right = torch.from_numpy(np.ascontiguousarray(rights_shifted[sl], np.float32)).to(dev)
-        vol = sgm._wzncc_volumes(left, right, [d_min] * len(part), num_d)
+        # the kernel reads unshifted right images: undo the zero-filled
+        # shift (the columns it dropped are the texels read as zeros)
+        w, tw, sum_w, norm_sq0 = sgm.wzncc_weights(left)
+        d_mins = torch.full((len(part),), d_min, dtype=torch.int32, device=dev)
+        vol = sgm.wzncc_volume_masked(w, tw, sum_w, norm_sq0, sgm._shift_right(right, -d_min),
+                                      d_mins, num_d)
         agg = sgm.aggregate8(vol, left, p1, p2, alpha, num_dirs, beta)
         idx, mn = sgm._argmin_first(agg)
         outs.append((idx.to(torch.int32) + d_min, mn))
