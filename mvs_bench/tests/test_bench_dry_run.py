@@ -1,0 +1,68 @@
+"""The harness end to end on the CPU (``--dry-run``: the configuration's
+small scene through the port's plain kernel versions), its refusal to
+measure without a card, and the modules a run may not load."""
+
+import json
+import subprocess
+import sys
+
+import pytest
+
+from mvs_bench import harness
+
+KEYS = {"correct", "attempted", "failed", "metrics", "device"}
+ENV_THREADS = {"OMP_NUM_THREADS": "4"}
+
+
+def _run(*args, timeout=900):
+    import os
+
+    env = dict(os.environ, **ENV_THREADS)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, str(harness.HERE / "run.py"), *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=harness.ROOT, env=env)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in harness.load_bench()["workloads"]])
+def test_dry_run_prints_the_contract_line(cell):
+    p = _run("--workload", cell, "--seed", "3000000019", "--seconds", "0", "--trace", "0",
+             "--dry-run")
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert KEYS <= set(out) and list(out)[-1] == "checks"
+    assert out["correct"] is True and out["attempted"] >= 1 and out["failed"] == 0
+    # a CPU run writes no device metric
+    assert set(out["metrics"]) <= {"f1_pct"} and out["device"]["platform"] == "cpu"
+    last = p.stderr.strip().splitlines()[-len(out["checks"]):]
+    assert all(line.startswith("check ") and " limit " in line for line in last)
+    # main() exits 3 and prints nothing when jax, jaxlib, flax or
+    # openmvs_tpu was loaded: exit code 0 means none was
+
+
+def test_without_a_card_a_run_prints_no_result():
+    p = _run("--workload", "dtu-pm.scene", "--seed", "1", "--seconds", "1")
+    assert p.returncode != 0
+    assert not p.stdout.strip()
+    assert "no result" in p.stderr
+
+
+def test_forbidden_names_are_compared_whole(monkeypatch):
+    monkeypatch.setitem(sys.modules, "openmvs_tpu_torch_fake", object())
+    monkeypatch.setitem(sys.modules, "jaxtyping_fake", object())
+    assert harness.forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "openmvs_tpu.fake", object())
+    monkeypatch.setitem(sys.modules, "jax", object())
+    assert harness.forbidden_modules() == ["jax", "openmvs_tpu"]
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    code = ("import sys; sys.path.insert(0, %r); import mvs_bench.reference, "
+            "mvs_bench.scene_gen, mvs_bench.work; "
+            "bad = sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'openmvs_tpu', 'openmvs_tpu_torch'}); "
+            "print(bad)" % str(harness.ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "[]"
