@@ -32,6 +32,10 @@ A ``Runner`` (one device, one thread) owns:
   valid pixels that improved, and the host reads it only from sweep
   ``min_sweeps`` on, deciding in float32 as the JAX loop condition does.
 
+The host side is traced through ``utils/log``: a span ``graphs.capture``
+around each capture (never inside a body, which runs only at its capture)
+and the counter ``pm.sweeps``, each sweep ``Sweeps`` runs, in both forms.
+
 Each program's outputs are either static buffers or read before the next
 replay, so programs may share one memory pool; the runner keeps every
 graph it captured until it goes. On the CPU a runner runs each program's
@@ -66,6 +70,7 @@ from openmvs_tpu_torch.config import DenseOptions
 from openmvs_tpu_torch.ops import _build, patchmatch, pm_kernel
 from openmvs_tpu_torch.ops.patchmatch import PMData, PMState, PMViews
 from openmvs_tpu_torch.utils import rng
+from openmvs_tpu_torch.utils.log import count, span
 
 # switches the sweep reads when it runs, hence when it is captured
 _SWITCHES = ("OMVS_GEOM_SPLIT", "OMVS_GEOM_FUSED", "OMVS_OLD_RNG", "OMVS_GEOM_DEBUG")
@@ -244,7 +249,7 @@ class Runner:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with _CAPTURE_LOCK, torch.cuda.device(self.device), \
+            with span("graphs.capture"), _CAPTURE_LOCK, torch.cuda.device(self.device), \
                     torch.cuda.stream(self._stream), pm_kernel.capturing(effects):
                 graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                 try:
@@ -327,6 +332,7 @@ class Sweeps:
                 self._state, self.data, self.opts, key, self.n_views, self.use_geom,
                 n_perturb=n_perturb, mode=mode, n_prop=n_prop, first_fold=first_fold,
                 n_sweeps=n_sweeps, min_sweeps=min_sweeps, eps=eps, min_frac=min_frac)
+            count("pm.sweeps", n)
             return n
         args = (mode, False, n_perturb, n_prop, 0.0, eps)
         n, go_on = 0, True
@@ -335,6 +341,7 @@ class Sweeps:
             n += 1
             if min_sweeps <= n < n_sweeps:
                 go_on = bool(np.float32(self._b.frac.item()) >= np.float32(min_frac))
+        count("pm.sweeps", n)
         return n
 
     def sweep(self, key, fold: int, mode: str, rescore: bool, n_perturb: int,
@@ -342,6 +349,7 @@ class Sweeps:
         """``patchmatch.sweep`` keyed fold_in(key, fold); ``active_eps`` > 0
         skips the bands that did not improve by more than it in the
         previous sweep of this view and level."""
+        count("pm.sweeps")
         if self._b is None:
             this = self._state.conf
             self._state = patchmatch.sweep(
