@@ -26,7 +26,10 @@ Phases, each printing one JSON line:
                   card, with timings; the multi-view rows bit for bit (NaN
                   included), and against the per-view route they replace (V
                   launches of K1, K2 or K3 plus the PyTorch epilogue or
-                  stack), timed in the same call; K1-v2 against K1
+                  stack), timed in the same call; K1-v2 against K1; the
+                  cross-view filter's splat and decide kernels at 800x600
+                  with 8 neighbours against their plain twin (bit for bit)
+                  and the host NumPy filter (share of equal pixels)
   4. variants   - K1 against K1-v2 on the dev script's inputs (C=11,
                   480x640, T=25): times, and the share of (candidate, pixel)s
                   whose texels all came from K1-v2's staged window; then
@@ -497,6 +500,12 @@ KERNEL_LINE = (
     ("sgm_scan", "sgm_scan.cu", "openmvs_tpu/ops/sgm.py:519", "sgm"),
     ("wzncc_volume", "wzncc_volume.cu", "openmvs_tpu/ops/sgm.py:335", "sgm"),
     ("segment_sum", "segment_sum.cu", "openmvs_tpu/refine.py:531", "refine"),
+    # the cross-view filter's kernels, where the JAX package has host NumPy
+    # and no TPU kernel (rows of one 800x600 view with 8 neighbours)
+    ("filter_splat", "filter_splat.cu",
+     "none: host NumPy, openmvs_tpu/ops/filters.py project_depth_to_view", "densify"),
+    ("filter_decide_adjust", "filter_splat.cu",
+     "none: host NumPy, openmvs_tpu/ops/filters.py filter_depth_adjust", "densify"),
 )
 
 
@@ -898,6 +907,156 @@ def _geom_views_kernel_rows(card, scene, gts):
     return rows
 
 
+def _bound_splat(hw, valid):
+    """(ms, "bytes" or "operations"): the least time of one splat on the
+    card. Bytes: the source depths read and the layer of 64-bit words
+    written, once. Operations: 66 float64 ones a valid source pixel (three
+    3x3 products of 5 each and two rows of K, the depth's 3 products, the
+    centres' 6 sums, 2 divisions; a fused multiply-add counts 2) at 34
+    TFLOP/s."""
+    b_ms, o_ms = hw * (4 + 8) / 3.35e12 * 1e3, 66 * valid / 34e12 * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def _bound_decide(n_nb, hw, landed):
+    """(ms, "bytes"): the least time of one view's decide: its depth and
+    confidence, its n_nb layers of 64-bit words and one confidence for each
+    word a depth landed in read, the new depth and confidence written."""
+    return (2 * hw * 4 + n_nb * hw * 8 + landed * 4 + 2 * hw * 4) / 3.35e12 * 1e3, "bytes"
+
+
+def _filter_kernel_rows(card):
+    """The cross-view filter's kernels at the benchmark scene's shapes: the
+    true depth maps of mvs_bench/scene_gen's 3x3 grid at 800x600 (its
+    renderer, on the card), confidences and a tenth of the pixels dropped
+    from a seed, view 4 against its 8 neighbours. The splat words and the
+    decided maps against the plain twin on the card, bit for bit, and the
+    whole filter of the 9 views (``filter_kernel.filter_views``) against
+    the host NumPy filter (``densify._filter_views`` on the host's maps):
+    the share of equal pixels. Times: one view's 8 splats and decide as a
+    CUDA-graph replay and eagerly, each kernel's mean from the profiler,
+    the twin on the card, the host's NumPy for the same view."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mvs_bench import harness, scene_gen
+    from openmvs_tpu_torch import densify
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.geometry.camera import Camera
+    from openmvs_tpu_torch.ops import filter_kernel as fk
+    from openmvs_tpu_torch.ops import filters
+
+    dev = torch.device("cuda")
+    cfg = copy.deepcopy(harness.resolve("dtu-pm.scene").config)["scene"]
+    W0, H0 = cfg["image_width"], cfg["image_height"]
+    K0 = scene_gen.intrinsics(W0, H0)
+    K = scene_gen.scale_intrinsics(K0, 0.5)
+    rng = np.random.default_rng(7)
+    results = {}
+    Cs = scene_gen.grid_centers(cfg["grid"], cfg["spacing"])
+    for i, C in enumerate(Cs):
+        depth = scene_gen.ray_march(K, C, W0 // 2, H0 // 2, dev)[0].float().cpu().numpy()
+        depth[rng.random(depth.shape) < 0.1] = 0.0
+        conf = np.where(depth > 0, rng.uniform(0.1, 1.0, depth.shape), 0).astype(np.float32)
+        results[i] = densify.DepthMapResult(
+            image_idx=i, depth=depth, normal=None, conf=conf, d_min=1.0, d_max=20.0,
+            neighbor_ids=[j for j in range(len(Cs)) if j != i],
+            camera=Camera(K, np.eye(3), C), device=dev)
+    opts = DenseOptions()
+    ref = 4
+    r = results[ref]
+    h, w = r.depth.shape
+    nbs = r.neighbor_ids
+    maps = {k: (torch.from_numpy(v.depth).to(dev), torch.from_numpy(v.conf).to(dev))
+            for k, v in results.items()}
+    cam = {n: fk.cams(results[n].camera, r.camera) for n in nbs}
+    fused = fk.blas_fuses()
+    stack = torch.full((len(nbs), h, w), fk.EMPTY, dtype=torch.int64, device=dev)
+    confs = [maps[n][1] for n in nbs]
+
+    def splats():
+        for j, n in enumerate(nbs):
+            fk.splat(stack[j], maps[n][0], cam[n], fused)
+
+    def view():
+        splats()
+        return fk.decide(stack, *maps[ref], confs, opts, r.d_min, r.d_max)
+
+    def plain():
+        twin = torch.full_like(stack, fk.EMPTY)
+        for j, n in enumerate(nbs):
+            fk.splat_plain(twin[j], maps[n][0], cam[n], fused)
+        proj = [fk.unpack_plain(twin[j], confs[j]) for j in range(len(nbs))]
+        return twin, torch.stack(fk.decide_plain(*maps[ref], proj, opts, r.d_min, r.d_max))
+
+    torch.cuda.synchronize()
+    splats()
+    words = stack.clone()
+    out = fk.decide(stack, *maps[ref], confs, opts, r.d_min, r.d_max)
+    torch.cuda.synchronize()
+    twin_words, twin_out = plain()
+    splat_equal = bool(torch.equal(words, twin_words))
+    decide_equal = bool(torch.equal(out.view(torch.int32), twin_out.view(torch.int32)))
+    stack_clear = bool((stack == fk.EMPTY).all())
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card_maps = densify._filter_views(results, set(), opts)
+    torch.cuda.synchronize()
+    filter_s = time.perf_counter() - t0
+    filter_peak = torch.cuda.max_memory_allocated() - base
+    host_in = {k: dataclasses.replace(v, device=None) for k, v in results.items()}
+    t0 = time.perf_counter()
+    host_maps = densify._filter_views(host_in, set(), opts)
+    host_s = time.perf_counter() - t0
+    equal = sum(int((card_maps[k].depth.view(np.uint32) == host_maps[k].depth.view(np.uint32)).sum()
+                    + (card_maps[k].conf.view(np.uint32) == host_maps[k].conf.view(np.uint32)).sum())
+                for k in results)
+    share = equal / (2 * h * w * len(results))
+    t0 = time.perf_counter()
+    for n in nbs:
+        filters.project_depth_to_view(results[n].depth, results[n].conf, results[n].camera,
+                                      r.camera, (h, w))
+    host_splat_ms = (time.perf_counter() - t0) / len(nbs) * 1e3
+    view_ms = cuda_ms(view, 20, graph=True)
+    view_eager_ms = cuda_ms(view, 20)
+    plain_ms = cuda_ms(plain, 3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            view()
+        torch.cuda.synchronize()
+    kern = _device_summary(prof, 8)["top"]
+    per = {k: next((t["total_ms"] / t["count"] for t in kern if k in t["name"]), None)
+           for k in ("filter_splat_kernel", "filter_decide_kernel")}
+    valid = sum(int((results[n].depth > 0).sum()) for n in nbs)
+    landed = int((words != fk.EMPTY).sum())
+    s_bound, s_by = _bound_splat(h * w, valid / len(nbs))
+    d_bound, d_by = _bound_decide(len(nbs), h * w, landed)
+    bound, by = len(nbs) * s_bound + d_bound, "bytes" if s_by == d_by else "mixed"
+    common = {"phase": "kernels", "H": h, "W": w, "neighbours": len(nbs),
+              "blas_fuses": fused, "card": card}
+    rec = dict(common, name="filter_view", ms=view_ms, eager_ms=view_eager_ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               splat_equal_twin=splat_equal, decide_equal_twin=decide_equal,
+               stack_left_clear=stack_clear, kernel_ms=per,
+               host_numpy_splat_ms=host_splat_ms,
+               filter_9_views_s=filter_s, host_filter_9_views_s=host_s,
+               filter_peak_bytes=filter_peak, equal_to_host_share=share,
+               launches_per_job=len(results) * (len(nbs) + 1) + 1)
+    emit(rec)
+    if not (splat_equal and decide_equal and stack_clear) or share < 0.9999:
+        raise RuntimeError(f"the filter kernels disagree: {rec}")
+    rows = {"filter_view": dict(rec, max_abs_err=0.0)}
+    rows["filter_splat"] = dict(rec, ms=per["filter_splat_kernel"], plain_ms=plain_ms,
+                                bound_ms=s_bound, bound_by=s_by, max_abs_err=0.0)
+    rows["filter_decide_adjust"] = dict(rec, ms=per["filter_decide_kernel"],
+                                        bound_ms=d_bound, bound_by=d_by, max_abs_err=0.0)
+    return rows
+
+
 def phase_kernels(card, scene, gts):
     import torch
 
@@ -906,6 +1065,7 @@ def phase_kernels(card, scene, gts):
     dev = torch.device("cuda")
     rows = _views_kernel_rows(card, scene, gts)
     rows.update(_geom_views_kernel_rows(card, scene, gts))
+    rows.update(_filter_kernel_rows(card))
     for C in (11, 1):
         data, opts, depth, normal, inv_nd = _kernel_inputs(C, dev, scene, gts)
         v = data.views
@@ -1179,7 +1339,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
 
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import pm_kernel
+    from openmvs_tpu_torch.ops import filter_kernel, pm_kernel
 
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
@@ -1191,6 +1351,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
         with tempfile.TemporaryDirectory() as tmp, _scoring_calls() as calls, \
                 _graph_runners() as made:
             pm_kernel.reset_launches()
+            filter0 = dict(filter_kernel.LAUNCHES)
             t0 = time.perf_counter()
             pc = densify.dense_reconstruction(scene, DenseOptions(), save_dmaps_to=tmp,
                                               device=device, _eager=eager)
@@ -1198,6 +1359,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(pm_kernel.LAUNCHES)
+            launches.update({k: v - filter0[k] for k, v in filter_kernel.LAUNCHES.items()})
             full = _dmaps(tmp, len(scene.images), ("depth", "normal", "conf"))
             extra = {"maps": full,
                      "graphs": _graph_summary(made) if device == "cuda" else None}

@@ -10,8 +10,10 @@ speckle/gap filters, the cross-view filter, and fusion into one cloud.
 neighbour pairs, fused per view (``estimate_depth_map_sgm``), with the
 pairs' disparities cached as ``.dimap`` files beside the depth maps.
 
-Estimation runs on ``device`` (the card by default); filters and fusion
-are host numpy, as in the JAX package. A scene with a mesh and no point
+Estimation runs on ``device`` (the card by default); the cross-view
+filter runs where the maps were estimated (on a card by the kernels of
+``ops/filter_kernel.py``, else host numpy, as in the JAX package), fusion
+on the host. A scene with a mesh and no point
 cloud seeds from the mesh's visible samples (``sample_mesh_with_visibility``);
 ``export_mesh_to_depth_maps`` renders the mesh into every view. At
 verbosity above 2 (``utils/log.verbosity``) each saved depth map also gets
@@ -31,7 +33,8 @@ Spans (``utils/log.span``, kept inside ``log.recording()``): ``densify``
 around the call, the stages ``timed`` logs, and in the PatchMatch path
 ``pm.view`` (``pm.seed``, per level ``pm.level`` with ``pm.setup``,
 ``pm.init``, ``pm.block`` and ``pm.sweep``, then ``pm.finalize``),
-``pm.download``, ``filter.project`` and ``filter.decide`` per view, and
+``pm.download``, ``filter.project`` and ``filter.decide`` per view (and on
+a card ``filter.upload`` and the counter ``filter.card_splats``), and
 fusion's ``fuse.*`` steps; ``graphs`` adds ``graphs.capture`` and the
 counter ``pm.sweeps``.
 
@@ -59,7 +62,7 @@ from openmvs_tpu_torch.geometry.camera import Camera
 from openmvs_tpu_torch.io import dimap as dimapio
 from openmvs_tpu_torch.io import dmap as dmapio
 from openmvs_tpu_torch.io import images as imio
-from openmvs_tpu_torch.ops import filters, fusion, graphs, patchmatch, seed, sgm
+from openmvs_tpu_torch.ops import filter_kernel, filters, fusion, graphs, patchmatch, seed, sgm
 from openmvs_tpu_torch.scene import PointCloud, Scene
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils import rng, safety
@@ -81,6 +84,7 @@ class DepthMapResult:
     d_max: float
     neighbor_ids: List[int]
     camera: Camera          # camera at depth-map resolution
+    device: Optional[torch.device] = None  # where the map was estimated
 
 
 def _resize_gray(gray: np.ndarray, scale: float) -> np.ndarray:
@@ -448,7 +452,7 @@ def _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results, geometric_
         final = patchmatch.finalize(result_state, data, opts, geometric_follows)
         template = DepthMapResult(
             image_idx=ref_idx, depth=None, normal=None, conf=None,
-            d_min=d_min, d_max=d_max, neighbor_ids=nbr_ids, camera=result_cam,
+            d_min=d_min, d_max=d_max, neighbor_ids=nbr_ids, camera=result_cam, device=dev,
         )
         deferred = DeferredResult(patchmatch.pack_state(final), template)
     if defer_download:
@@ -598,6 +602,7 @@ def estimate_depth_map_sgm(
         d_max=d_max,
         neighbor_ids=[vs.id for vs in neighbors[:num] if vs.id in id_to_idx],
         camera=camA,
+        device=dev,
     )
 
 
@@ -612,11 +617,28 @@ def optimize_depth_map(res: DepthMapResult, opts: DenseOptions) -> None:
 def _filter_views(results: Dict[int, DepthMapResult], resumed: set,
                   opts: DenseOptions) -> Dict[int, DepthMapResult]:
     """Cross-view filter of every estimated map against its neighbors'
-    maps projected into it (FilterDepthMap, SceneDensify.cpp:1050-1302)."""
+    maps projected into it (FilterDepthMap, SceneDensify.cpp:1050-1302).
+
+    A map estimated on a card (``DepthMapResult.device``) is filtered there,
+    by the hand-written kernels of ``ops/filter_kernel.py``; the others on
+    the host in NumPy. Both give the same maps; the results hold NumPy maps
+    either way."""
+    cards: Dict[torch.device, List[int]] = {}
+    for rid, r in results.items():
+        if rid not in resumed and r.device is not None and r.device.type == "cuda":
+            cards.setdefault(r.device, []).append(rid)
+    on_card = {}
+    for dev, rids in cards.items():
+        on_card.update(filter_kernel.filter_views(results, rids, opts, dev))
     filtered: Dict[int, DepthMapResult] = {}
     for rid, r in results.items():
         if rid in resumed:
             filtered[rid] = r
+            continue
+        if rid in on_card:
+            new = on_card[rid]
+            filtered[rid] = r if new is None else dataclasses.replace(
+                r, depth=new[0], conf=new[1])
             continue
         projected = []
         for nb_id in r.neighbor_ids:

@@ -34,7 +34,7 @@ V2_MAX_TEXELS = 96  # K1-v2 stages the tile's weights of at most this many texel
 SGM_REG_D = 256  # sgm_scan keeps the carry in registers up to this many disparities
 WZNCC_MAX_TEXELS = 64  # wzncc_volume holds a pixel's weights in two registers a lane
 
-P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+P, I, F, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_double
 # argtypes of every exported function, by library (source stem)
 SIGNATURES = {
     "pm_score": {
@@ -120,6 +120,25 @@ SIGNATURES = {
             P,                  # stream
         ],
         "wzncc_volume_max_texels": [],
+    },
+    "filter_splat": {
+        "filter_splat_launch": [
+            P, I, I,            # depth (hs, ws), hs, ws
+            P,                  # cams: 42 float64 (host)
+            P, I, I,            # layer (hr, wr) 64-bit words, hr, wr
+            I,                  # fused
+            P,                  # stream
+        ],
+        "filter_decide_launch": [
+            P, P, P, P,         # depth_ref, conf_ref, stack (n_nb, h, w), confs (host)
+            I, I, I, I,         # n_nb, h, w, adjust
+            F, F, I, I,         # th_a, th_b, n_min_views, n_min_adjust
+            D, D,               # d_min, d_max
+            P,                  # out (2, h, w)
+            P,                  # stream
+        ],
+        "filter_clear_launch": [P, L, P],  # words, n, stream
+        "filter_max_neighbours": [],
     },
     "segment_sum": {
         "segment_sum_launch": [
@@ -224,6 +243,7 @@ def _load(name: str) -> ctypes.CDLL:
               "pm_geom_views": ("pm_geom_views_max_views", MAX_VIEWS),
               "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS),
               "sgm_scan": ("sgm_scan_reg_d", SGM_REG_D),
+              "filter_splat": ("filter_max_neighbours", MAX_VIEWS),
               "wzncc_volume": ("wzncc_volume_max_texels", WZNCC_MAX_TEXELS)}
     if name in limits:
         fn, want = limits[name]

@@ -43,6 +43,12 @@ import pytest  # noqa: E402
 REFERENCE_DATA = "/root/reference/apps/Tests/data"
 
 
+def pytest_configure(config):
+    # tests that need a CUDA card decide inside a fixture and skip on the
+    # CPU; on the card: python3 -m pytest --noconftest <file> (no JAX there)
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips on the CPU")
+
+
 def tpu_devices():
     """Accelerator devices if any non-CPU platform is initialized, else []."""
     try:

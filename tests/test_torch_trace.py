@@ -265,6 +265,8 @@ def test_densify_records_every_step_and_changes_nothing(monkeypatch):
     used = sum(len([n for n in scene.images[r].meta.view_scores if n.id in maps1])
                for r in maps1)
     assert names["filter.project"] == used and names["filter.decide"] == n_views
+    # maps estimated on the CPU are filtered on the host: nothing splats on a card
+    assert rec.counters.get("filter.card_splats", 0) == 0 and "filter.upload" not in names
     assert {parent(sp) for sp in rec.spans if sp.name.startswith("filter.")} == {
         "cross-view filter"}
     assert names["fuse.neighbours"] == names["fuse.keep"] == n_views
