@@ -1,12 +1,14 @@
 """The benchmark's harness: finds a cell's files by name, drives the
 program's jobs, records spans, counters and kernel work from the
-benchmark's own wrappers, reads the device trace, and judges the outputs.
+benchmark's own wrappers, and reads the device trace.
 
 Everything that belongs to one configuration, traffic mix or per-layer
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 ``configs/<config>.json``, ``traffic/<traffic>.json`` and
-``metrics/<metric>.py`` under this folder. Adding one takes new files and
-entries only.
+``metrics/<metric>.py`` under this folder; a configuration names the
+module that judges its outputs, ``references/<reference>.py``, and keeps
+the faults its cells can have in ``faults/<config>.py``. Adding one takes
+new files and entries only.
 """
 
 from __future__ import annotations
@@ -45,24 +47,64 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     metrics: Dict[str, object]  # per-layer metric name -> its reader module
+    reference: object  # the configuration's references/<name>.py
 
 
 def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def load_metric(name: str, folder: Path = HERE / "metrics"):
-    """The reader module ``metrics/<name>.py`` (names may hold dots)."""
-    path = folder / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"mvs_bench_metric_{name}", path)
+def _load(path: Path, kind: str):
+    """The module in ``path``, loaded by file name (names may hold dots)."""
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} module {path}")
+    spec = importlib.util.spec_from_file_location(f"mvs_bench_{kind}_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+def load_metric(name: str, folder: Path = HERE / "metrics"):
+    """The reader module ``metrics/<name>.py``."""
+    return _load(folder / f"{name}.py", "metric")
+
+
+def load_reference(name: str, folder: Path = HERE / "references"):
+    """The reference module ``references/<name>.py``: ``COMPARED``, the
+    readings it judges; ``prepare(cfg, device)``, what it compares
+    against; ``judge(prepared, job)``, a job's readings; ``control(cfg,
+    device)``, the readings of the reference below the configuration's
+    precision put in the program's place; optionally ``install(probes)``,
+    to keep on each job what it judges."""
+    return _load(folder / f"{name}.py", "reference")
+
+
+def load_faults(config: str, folder: Path = HERE / "faults") -> dict:
+    """``FAULTS`` of ``faults/<config>.py``: name -> ``plant(monkeypatch)``,
+    each a fault of the timed path that the configuration's cells can
+    have, for the tests."""
+    return _load(folder / f"{config}.py", "faults").FAULTS
+
+
+def _reference(config: dict, folder: Path):
+    """The configuration's reference, which must compare every reading that
+    its limits hold."""
+    if "reference" not in config:
+        raise ValueError(f"configs/{config['name']}.json names no reference")
+    mod = load_reference(config["reference"], folder / "references")
+    for where, limits in (("limits", config["limits"]),
+                          ("dry_run.limits", config["dry_run"]["limits"])):
+        extra = sorted(set(limits) - set(mod.COMPARED))
+        if extra:
+            raise ValueError(f"configs/{config['name']}.json: {where} {extra} are not "
+                             f"compared by references/{config['reference']}.py")
+    return mod
+
+
 def resolve(name: str, bench: Optional[dict] = None, folder: Path = HERE) -> Cell:
-    """The cell ``name`` of ``BENCHMARK.json`` with its configuration,
-    traffic and per-layer readers, each found by file name."""
+    """The cell ``name`` of ``BENCHMARK.json`` with its configuration, its
+    configuration's reference, traffic and per-layer readers, each found by
+    file name."""
     bench = bench or load_bench()
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -81,7 +123,8 @@ def resolve(name: str, bench: Optional[dict] = None, folder: Path = HERE) -> Cel
                 raise ValueError(f"metrics/{m['name']}.py: {attr} {getattr(mod, attr)!r} "
                                  f"!= BENCHMARK.json's {m[key]!r}")
     return Cell(w, config, traffic,
-                [m for m in bench["end_to_end"] if _reports(m, name)], per_layer, metrics)
+                [m for m in bench["end_to_end"] if _reports(m, name)], per_layer, metrics,
+                _reference(config, folder))
 
 
 def forbidden_modules() -> List[str]:
@@ -105,6 +148,7 @@ class Job:
     captures: int = 0
     work: List[tuple] = dataclasses.field(default_factory=list)  # (family, bytes, fp32, fp64)
     device: Optional[dict] = None  # from the trace, for the profiled job
+    kept: dict = dataclasses.field(default_factory=dict)  # by the reference's install
     error: Optional[str] = None
 
     def span_s(self, *prefixes: str) -> float:

@@ -1,11 +1,12 @@
-"""The plain reference and the comparison that decides ``correct``.
+"""The reference ``geometry``: the scene's own geometry, and the comparison
+that decides ``correct`` for a configuration whose ``reference`` it is.
 
-The reference is the scene's own geometry: each view's true depth at the
-maps' resolution, ray-marched from the analytic surface by
-``scene_gen.ray_march`` (plain PyTorch, float64), and the surface itself.
-It takes nothing the program made: the cameras are the configuration's,
-worked out again here. What the program served (its filtered depth maps
-and its fused cloud) is read only to be judged:
+The reference is each view's true depth at the maps' resolution,
+ray-marched from the analytic surface by ``scene_gen.ray_march`` (plain
+PyTorch, float64), and the surface itself. It takes nothing the program
+made: the cameras are the configuration's, worked out again here. What the
+program served (its filtered depth maps and its fused cloud, which
+``harness.Probes`` keeps on every job) is read only to be judged:
 
 - ``depth_err_med_pct``: the median relative error of the served depths,
   over the pixels where both the map and the truth have one;
@@ -18,13 +19,14 @@ and its fused cloud) is read only to be judged:
 
 ``f1_pct`` is ETH3D's F1 of a cloud at ``tol``: precision as above,
 recall the share of true-surface samples (every 4th pixel of each view's
-true depth) with a fused point within ``tol``. Imports nothing of the
-program.
+true depth) with a fused point within ``tol``. Every scene is
+``scene_gen``'s surface, so ``run.py`` reads ``f1_pct`` from this module
+whatever the configuration's reference. Imports nothing of the program.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +38,8 @@ TOL_REL = 0.005
 # a served depth farther than this share of the true depth from it is bad
 BAD_REL = 0.002
 RECALL_STRIDE = 4
+# the readings that a configuration's limits may hold
+COMPARED = ("depth_err_med_pct", "depth_bad_pct", "cloud_bad_pct")
 
 
 def map_camera(cfg: dict):
@@ -87,8 +91,8 @@ def tolerance(truth: List[np.ndarray]) -> float:
     return TOL_REL * float(np.median(np.concatenate([t[t > 0] for t in truth])))
 
 
-def judge(maps: Dict[int, np.ndarray], points: np.ndarray, truth: List[np.ndarray],
-          tol: float) -> Dict[str, float]:
+def readings(maps: Dict[int, np.ndarray], points: np.ndarray, truth: List[np.ndarray],
+             tol: float) -> Dict[str, float]:
     """The compared numbers of one job: ``maps`` {view index: served depth}
     (a view left out has no entry), ``points`` its fused cloud."""
     n_truth = n_missing = n_off = 0
@@ -135,6 +139,27 @@ def f1_pct(points: np.ndarray, truth: List[np.ndarray], K: np.ndarray, Cs,
     return 100.0 * 2 * precision * recall / (precision + recall)
 
 
+class Truth(NamedTuple):
+    """The float64 reference of a configuration's scene."""
+
+    maps: List[np.ndarray]  # each view's true depth
+    tol: float
+    K: np.ndarray
+    Cs: np.ndarray
+
+
+def prepare(cfg: dict, device) -> Truth:
+    """The true depth of every view in float64, its tolerance and cameras."""
+    truth = truth_maps(cfg, device)
+    K, Cs = map_camera(cfg)
+    return Truth(truth, tolerance(truth), K, Cs)
+
+
+def judge(prepared: Truth, job) -> Dict[str, float]:
+    """One job's readings: its filtered maps and fused cloud."""
+    return readings(job.maps, job.points, prepared.maps, prepared.tol)
+
+
 def control(cfg: dict, device, dtype=torch.bfloat16) -> Dict[str, float]:
     """The control: the reference computed in ``dtype`` put in the
     program's place (its maps served, every valid pixel of them as the
@@ -144,4 +169,4 @@ def control(cfg: dict, device, dtype=torch.bfloat16) -> Dict[str, float]:
     K, Cs = map_camera(cfg)
     maps = {i: d.astype(np.float32) for i, d in enumerate(low)}
     cloud = np.concatenate([backproject(d, K, C) for d, C in zip(low, Cs)])
-    return judge(maps, cloud, truth, tolerance(truth))
+    return readings(maps, cloud, truth, tolerance(truth))

@@ -8,10 +8,12 @@ scene made on the card from ``--seed``, and the traffic's warm-up jobs.
 The window: whole jobs back to back until ``--seconds`` have passed, each
 ``dense_reconstruction`` over the scene to its fused cloud;
 ``depth_maps_per_s`` is their maps over the time from the window's start
-to the last job's end. Then every job's filtered depth maps and cloud are
-judged against the reference (``reference.py``): each job's readings, then
-each compared number beside its limit, on standard error. The run keeps
-few host threads on fixed cores (``steady_host``).
+to the last job's end. Then every job is judged by the configuration's
+reference (``references/<reference>.py``, named by the configuration's
+``reference``): each job's readings, then each compared number beside its
+limit, on standard error. ``f1_pct`` is the last job's cloud against the
+scene's geometry (``references/geometry.py``), whatever the reference. The
+run keeps few host threads on fixed cores (``steady_host``).
 
 ``--trace 1`` profiles the window's first job with ``torch.profiler`` (the
 trace is read after the window) and reports the cell's per-layer metrics
@@ -88,7 +90,7 @@ def run(args, t_start: float = T_START) -> dict:
     when the cell's cards are not there (outside ``--dry-run``)."""
     import torch
 
-    from mvs_bench import harness, reference, scene_gen
+    from mvs_bench import harness, scene_gen
 
     cell = harness.resolve(args.workload)
     cfg = copy.deepcopy(cell.config)
@@ -116,6 +118,8 @@ def run(args, t_start: float = T_START) -> dict:
     traffic = cell.traffic
     probes = harness.Probes()
     probes.install()
+    if hasattr(cell.reference, "install"):
+        cell.reference.install(probes)
     if args.trace:
         for mod in cell.metrics.values():
             if hasattr(mod, "install"):
@@ -174,19 +178,21 @@ def run(args, t_start: float = T_START) -> dict:
     # the reference, once the window has closed and the peak is read
     if device == "cuda":
         torch.cuda.empty_cache()
-    truth = reference.truth_maps(cfg, device)
-    tol = reference.tolerance(truth)
-    K, Cs = reference.map_camera(cfg)
+    geometry = harness.load_reference("geometry")
+    scene = geometry.prepare(cfg, device)  # float64 truth, for f1_pct
+    prepared = (scene if Path(cell.reference.__file__) == Path(geometry.__file__)
+                else cell.reference.prepare(cfg, device))
     checks = {name: 0.0 for name in limits}
     failed = len(jobs) - len(done)
     for n, j in enumerate(done, 1):
-        got = reference.judge(j.maps, j.points, truth, tol)
+        got = cell.reference.judge(prepared, j)
         print(f"job {n} readings {json.dumps(got)}", file=sys.stderr)
         if any(got[k] > limits[k] for k in limits):
             failed += 1
         for k in limits:
             checks[k] = max(checks[k], got[k])
-    f1 = reference.f1_pct(done[-1].points, truth, K, Cs, tol) if done else None
+    f1 = (geometry.f1_pct(done[-1].points, scene.maps, scene.K, scene.Cs, scene.tol)
+          if done else None)
     correct = bool(done) and failed == 0 and f1 is not None
 
     metrics = {}

@@ -1,7 +1,8 @@
-"""On the card (``-m card``; each test skips on the CPU): the control at
-each cell's own size fails the cell's limits on three seeds (each run
-prints what it read: ``-s`` shows it), and a short run of each cell reads
-correct with the contract's last line."""
+"""On the card (``-m card``; each test skips on the CPU): the control of
+each cell's configuration, from its reference module, at the cell's own
+size fails the cell's limits on three seeds (each run prints what it read:
+``-s`` shows it), and a short run of each cell reads correct with the
+contract's last line. The cells are ``BENCHMARK.json``'s."""
 
 import json
 import subprocess
@@ -9,9 +10,9 @@ import sys
 
 import pytest
 
-from mvs_bench import harness, reference
+from mvs_bench import harness
 
-CELLS = ["dtu-pm.scene"]
+CELLS = [w["name"] for w in harness.load_bench()["workloads"]]
 
 
 @pytest.mark.card
@@ -21,10 +22,10 @@ def test_the_control_fails_at_the_cells_size(needs_card, cell, seed):
     import torch
 
     torch.manual_seed(seed)
-    cfg = harness.resolve(cell).config
-    got = reference.control(cfg, "cuda")
+    c = harness.resolve(cell)
+    got = c.reference.control(c.config, "cuda")
     print(f"control {cell} {seed}: {json.dumps(got)}")
-    limits = cfg["limits"]
+    limits = c.config["limits"]
     assert any(got[k] > limits[k] for k in limits), got
 
 

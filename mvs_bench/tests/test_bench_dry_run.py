@@ -2,6 +2,7 @@
 small scene through the port's plain kernel versions), its refusal to
 measure without a card, and the modules a run may not load."""
 
+import functools
 import json
 import subprocess
 import sys
@@ -24,10 +25,15 @@ def _run(*args, timeout=900):
                           cwd=harness.ROOT, env=env)
 
 
+@functools.lru_cache(maxsize=None)
+def _dry_run(cell):
+    return _run("--workload", cell, "--seed", "3000000019", "--seconds", "0", "--trace", "0",
+                "--dry-run")
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in harness.load_bench()["workloads"]])
 def test_dry_run_prints_the_contract_line(cell):
-    p = _run("--workload", cell, "--seed", "3000000019", "--seconds", "0", "--trace", "0",
-             "--dry-run")
+    p = _dry_run(cell)
     assert p.returncode == 0, p.stderr[-3000:]
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert KEYS <= set(out) and list(out)[-1] == "checks"
@@ -38,6 +44,26 @@ def test_dry_run_prints_the_contract_line(cell):
     assert all(line.startswith("check ") and " limit " in line for line in last)
     # main() exits 3 and prints nothing when jax, jaxlib, flax or
     # openmvs_tpu was loaded: exit code 0 means none was
+
+
+# The dry run's last line at commit df7193e, where the judge was the one
+# module reference.py and not yet the configuration's references/geometry.py
+# (the same command, this seed): moving the judge changes no reading.
+PARENT = {"dtu-pm.scene": {
+    "f1_pct": 19.963585509668107,
+    "checks": {"depth_err_med_pct": {"value": 0.7503497756321161, "limit": 1.2},
+               "depth_bad_pct": {"value": 93.21652270029067, "limit": 95.0},
+               "cloud_bad_pct": {"value": 58.072590738423024, "limit": 70.0},
+               "jobs_failed": {"value": 0, "limit": 0}}}}
+
+
+@pytest.mark.parametrize("cell", sorted(PARENT))
+def test_dry_run_reads_as_before_the_judge_moved(cell):
+    p = _dry_run(cell)
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert list(out["checks"].items()) == list(PARENT[cell]["checks"].items())
+    assert out["metrics"]["f1_pct"]["value"] == PARENT[cell]["f1_pct"]
 
 
 def test_without_a_card_a_run_prints_no_result():
@@ -57,12 +83,17 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, %r); import mvs_bench.reference, "
-            "mvs_bench.scene_gen, mvs_bench.work; "
+    """Every module under ``references/``, loaded as the harness loads it,
+    with the yardstick's own modules."""
+    code = ("import sys; sys.path.insert(0, %r); import mvs_bench.scene_gen, mvs_bench.work; "
+            "from mvs_bench import harness; "
+            "names = [p.stem for p in sorted((harness.HERE / 'references').glob('*.py'))]; "
+            "[harness.load_reference(n) for n in names]; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'openmvs_tpu', 'openmvs_tpu_torch'}); "
-            "print(bad)" % str(harness.ROOT))
+            "import json; print(json.dumps([names, bad]))" % str(harness.ROOT))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300)
     assert p.returncode == 0, p.stderr
-    assert p.stdout.strip() == "[]"
+    names, bad = json.loads(p.stdout.strip().splitlines()[-1])
+    assert "geometry" in names and bad == []
