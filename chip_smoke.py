@@ -1307,6 +1307,13 @@ def _graph_runners():
             super().__init__()
             made.append(self)
 
+        def release(self):
+            # a call releases its runners when it returns: keep what they
+            # held for the summary
+            self.held = {"classes": sum(r.n_classes for r in self.all()),
+                         "pool_bytes": sum(r.pool_bytes() for r in self.all())}
+            super().release()
+
     graphs.Runners = Recorded
     try:
         yield made
@@ -1319,13 +1326,17 @@ def _graph_runners():
 
 def _graph_summary(runners_list):
     """Captures, their seconds, replays and the graph pools' bytes (the
-    card's segments of each runner's pool) of graphs.Runners objects."""
+    card's segments of each runner's pool) of graphs.Runners objects; a
+    released one's classes and bytes as it held them before it let go."""
     runners = [r for rs in runners_list for r in rs.all()]
     return {"runners": len(runners), "captures": sum(r.captures for r in runners),
             "capture_s": sum(r.capture_s for r in runners),
             "replays": sum(r.replays for r in runners),
-            "classes": sum(r.n_classes for r in runners),
-            "pool_bytes": sum(r.pool_bytes() for r in runners)}
+            "classes": sum(getattr(rs, "held", {}).get("classes", 0) for rs in runners_list)
+            + sum(r.n_classes for r in runners),
+            "pool_bytes": sum(getattr(rs, "held", {}).get("pool_bytes", 0)
+                              for rs in runners_list)
+            + sum(r.pool_bytes() for r in runners)}
 
 
 def _run_densify(scene, device="cuda", env=None, eager=False):

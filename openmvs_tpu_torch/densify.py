@@ -507,15 +507,27 @@ def estimate_depth_map_sgm(
 
     On the card each matching level runs as a CUDA graph of its shape
     class (``sgm.LevelProgram``): ``runners`` (a ``dense_reconstruction``
-    call's) keeps them across calls, else this call captures its own. On
-    the CPU the levels run op by op unless ``runners`` is given (the
-    programs' CPU form). ``_eager`` runs them op by op on the card too, the
-    reference the graphs are checked against."""
+    call's) keeps them across calls, else this call captures its own and
+    releases them when it returns. On the CPU the levels run op by op
+    unless ``runners`` is given (the programs' CPU form). ``_eager`` runs
+    them op by op on the card too, the reference the graphs are checked
+    against.
+
+    Spans: ``sgm.view`` (view) around ``sgm.pair`` (view, neighbour) per
+    pair, which holds ``sgm.rectify``, the matcher's ``sgm.level`` spans
+    and ``sgm.project``; then ``sgm.fuse`` (view)."""
     dev = devmod.resolve(device)
     if _eager or (runners is None and dev.type != "cuda"):
         runners = None
     elif runners is None:
-        runners = graphs.Runners()
+        with graphs.Runners() as own:
+            return estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev, own)
+    with span("sgm.view", view=ref_idx):
+        return _estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev, runners)
+
+
+def _estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev,
+                            runners) -> Optional[DepthMapResult]:
     img = scene.images[ref_idx]
     neighbors = img.meta.view_scores
     if not neighbors:
@@ -538,53 +550,16 @@ def estimate_depth_map_sgm(
             continue
         nb = scene.images[j]
         camB = nb.working_camera()
-        try:
-            rectA, rectB, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
-        except ValueError:
-            continue
-
-        cache = None
-        if dimap_dir:
-            cache = os.path.join(dimap_dir, f"{img.meta.id:04d}_{nb.meta.id:04d}.dimap")
-        disp = cost = None
-        if cache and os.path.exists(cache):
-            dd = dimapio.load(cache)
-            disp = dd.disparity.astype(np.float32)
-            disp[~np.isfinite(disp)] = np.nan
-            cost = (dd.cost.astype(np.float32)
-                    if dd.cost is not None else np.zeros_like(disp))
-        if disp is None:
-            d_lo, d_hi = _sgm_pair_range(pts_ref, info, camA, camB, opts)
-            disp, cost = sgm.match_pair_tsgm(
-                rectA, rectB, d_lo, d_hi,
-                p1=opts.sgm_p1, p2=opts.sgm_p2, alpha=opts.sgm_p2_alpha,
-                beta=opts.sgm_p2_beta,
-                subpixel_mode=opts.sgm_subpixel_mode,
-                num_dirs=opts.sgm_num_dirs, device=dev, runners=runners,
-            )
-            if cache:
-                Q = np.eye(4)
-                Q[:3, :3] = info["Rn"]
-                Q[:3, 3] = info["C1"]
-                Q[3, 0] = info["baseline"]
-                dd = dimapio.DisparityData(
-                    disparity=disp.astype(np.float32),
-                    image_width=W, image_height=H,
-                    H=info["TA"], Q=Q,
-                    subpixel_steps=opts.sgm_subpixel_steps,
-                    cost=np.clip(np.nan_to_num(cost), 0, 65535).astype(np.uint16),
-                )
-                os.makedirs(dimap_dir, exist_ok=True)
-                dimapio.save(dd, cache)
-
-        pair_maps.append(sgm.project_disparity_to_depth(
-            disp, np.nan_to_num(cost), info, camA, (H, W),
-            subpixel_steps=float(opts.sgm_subpixel_steps)))
+        with span("sgm.pair", view=ref_idx, neighbour=vs.id):
+            pair = _sgm_pair(camA, camB, img, nb, pts_ref, opts, dimap_dir, dev, runners)
+        if pair is not None:
+            pair_maps.append(pair)
 
     if not pair_maps:
         return None
-    depth, conf = sgm.fuse_pair_depths(pair_maps, max(1, opts.min_views - 1)
-                                       if len(pair_maps) > 1 else 1)
+    with span("sgm.fuse", view=ref_idx):
+        depth, conf = sgm.fuse_pair_depths(pair_maps, max(1, opts.min_views - 1)
+                                           if len(pair_maps) > 1 else 1)
     if depth is None or not (depth > 0).any():
         return None
     valid = depth > 0
@@ -604,6 +579,58 @@ def estimate_depth_map_sgm(
         camera=camA,
         device=dev,
     )
+
+
+def _sgm_pair(camA: Camera, camB: Camera, img, nb, pts_ref: np.ndarray,
+              opts: DenseOptions, dimap_dir: Optional[str], dev, runners):
+    """One scored pair of an SGM view: rectified, matched (or read from its
+    ``.dimap`` cache) and projected into the reference camera as
+    ``(depth, lo, hi, conf)``; None for a degenerate baseline."""
+    H, W = img.gray.shape
+    with span("sgm.rectify"):
+        try:
+            rectA, rectB, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
+        except ValueError:
+            return None
+
+    cache = None
+    if dimap_dir:
+        cache = os.path.join(dimap_dir, f"{img.meta.id:04d}_{nb.meta.id:04d}.dimap")
+    disp = cost = None
+    if cache and os.path.exists(cache):
+        dd = dimapio.load(cache)
+        disp = dd.disparity.astype(np.float32)
+        disp[~np.isfinite(disp)] = np.nan
+        cost = (dd.cost.astype(np.float32)
+                if dd.cost is not None else np.zeros_like(disp))
+    if disp is None:
+        d_lo, d_hi = _sgm_pair_range(pts_ref, info, camA, camB, opts)
+        disp, cost = sgm.match_pair_tsgm(
+            rectA, rectB, d_lo, d_hi,
+            p1=opts.sgm_p1, p2=opts.sgm_p2, alpha=opts.sgm_p2_alpha,
+            beta=opts.sgm_p2_beta,
+            subpixel_mode=opts.sgm_subpixel_mode,
+            num_dirs=opts.sgm_num_dirs, device=dev, runners=runners,
+        )
+        if cache:
+            Q = np.eye(4)
+            Q[:3, :3] = info["Rn"]
+            Q[:3, 3] = info["C1"]
+            Q[3, 0] = info["baseline"]
+            dd = dimapio.DisparityData(
+                disparity=disp.astype(np.float32),
+                image_width=W, image_height=H,
+                H=info["TA"], Q=Q,
+                subpixel_steps=opts.sgm_subpixel_steps,
+                cost=np.clip(np.nan_to_num(cost), 0, 65535).astype(np.uint16),
+            )
+            os.makedirs(dimap_dir, exist_ok=True)
+            dimapio.save(dd, cache)
+
+    with span("sgm.project"):
+        return sgm.project_disparity_to_depth(
+            disp, np.nan_to_num(cost), info, camA, (H, W),
+            subpixel_steps=float(opts.sgm_subpixel_steps))
 
 
 def optimize_depth_map(res: DepthMapResult, opts: DenseOptions) -> None:
@@ -756,12 +783,13 @@ def dense_reconstruction(
     image rows over the tiles with halo exchange), whose maps equal the
     serial path's run without the adaptive early exit.
 
-    On a card each view's sweeps run as CUDA graphs, captured once per
-    call and shape class and replayed over every view and pass
-    (``ops/graphs.py``); ``_eager`` launches them one by one instead, the
+    On a card each view's sweeps (and SGM's levels) run as CUDA graphs,
+    captured once per call and shape class and replayed over every view and
+    pass (``ops/graphs.py``), and released with their memory pools when
+    the call returns; ``_eager`` launches them one by one instead, the
     reference the graphs are checked against. The sharded path stays
     eager."""
-    with profile_trace("densify"), span("densify"):
+    with profile_trace("densify"), span("densify"), contextlib.ExitStack() as call:
         dev = devmod.resolve(device)
         devices = [devmod.resolve(d) for d in devices] if devices else [dev]
         if abs(fusion_mode) == 1 and not save_dmaps_to:
@@ -821,8 +849,9 @@ def dense_reconstruction(
 
         use_sgm = opts.estimator == "sgm"
         use_sharded = mesh is not None and mesh.size > 1 and not use_sgm
-        runners = (graphs.Runners() if not _eager and any(d.type == "cuda" for d in devices)
-                   else None)
+        # the call's graph programs, released with their pools when it returns
+        runners = (call.enter_context(graphs.Runners())
+                   if not _eager and any(d.type == "cuda" for d in devices) else None)
         if use_sharded:
             from openmvs_tpu_torch.parallel import sharded
 

@@ -38,14 +38,22 @@ and the counter ``pm.sweeps``, each sweep ``Sweeps`` runs, in both forms.
 
 Each program's outputs are either static buffers or read before the next
 replay, so programs may share one memory pool; the runner keeps every
-graph it captured until it goes. On the CPU a runner runs each program's
-body directly on the same static buffers (its CPU form, which the tests
-hold against the eager functions).
+graph it captured until it is released. ``Runners.release`` (or leaving a
+``with Runners()`` block) releases a call's runners: their programs,
+graphs and buffers go, and their pools' memory goes back to the card. On
+the CPU a runner runs each program's body directly on the same static
+buffers (its CPU form, which the tests hold against the eager functions).
 
 Refinement's iteration (``refine.IterProgram``) and SGM's matching level
 (``sgm.LevelProgram``, one per shape class, kept by the runner through
-``kept``) are its other users: each keeps its own buffers and captures
-through ``capture`` and ``replay``.
+``kept``) are its other users: each keeps its own buffers, captures
+through ``capture`` and ``replay``, and holds no reference to its runner,
+so a runner and its programs form no cycle. Both are needed: a caller
+that drops its runners unreleased (``estimate_depth_map`` called alone,
+or one that hands ``match_pair_tsgm`` a ``Runners`` of its own) frees
+their programs and graphs by reference count, and their pools' memory
+at the allocator's next ``empty_cache`` or failed allocation;
+``release`` returns it at once.
 
 Threads: ``Runners`` gives each (thread, device) its own runner, so worker
 threads share no buffer and no pool. Captures hold a process-wide lock and
@@ -224,6 +232,16 @@ class Runner:
             prog = self._programs[key] = make()
         return prog
 
+    def release(self) -> None:
+        """Let go of every program, graph and buffer; the counters stay. A
+        later capture goes into a new pool: PyTorch refuses one into a pool
+        whose graphs have all gone."""
+        self._programs.clear()
+        self._classes.clear()
+        self._graphs.clear()
+        if self.pool is not None:
+            self.pool = torch.cuda.graph_pool_handle()
+
     def replay(self, graph: torch.cuda.CUDAGraph, effects: list) -> None:
         """Replay ``graph`` on the current stream, then run the host
         effects its capture recorded."""
@@ -267,11 +285,30 @@ class Runner:
 
 class Runners:
     """The runners of one densify call: one per (thread, device), made on
-    first use."""
+    first use. As a context manager it releases them when the block ends."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._runners: Dict[tuple, Runner] = {}
+
+    def __enter__(self) -> "Runners":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+    def release(self) -> None:
+        """Release every runner (``Runner.release``) and return their pools'
+        memory to the card. A pool whose graphs have all gone is freed only
+        by the allocator's ``empty_cache`` or by an allocation that fails,
+        so without it each call's pools would stay reserved."""
+        runners = self.all()
+        for r in runners:
+            r.release()
+        if any(r.pool is not None for r in runners):
+            with _CAPTURE_LOCK:  # never while another thread captures
+                torch.cuda.empty_cache()
 
     def get(self, device) -> Runner:
         k = (threading.get_ident(), torch.device(device))

@@ -42,6 +42,14 @@ the disparity flip, the sub-pixel fits, the speckle filter (OpenCV's
 filterSpeckles rebuilt on scipy's connected components), rectification
 (``io/images.warp_perspective`` for cv2.warpPerspective), and the depth
 projection and fusion.
+
+Traced through ``utils/log`` (never inside a level's body): per level of
+``match_pair_tsgm`` the span ``sgm.level`` (level, hs, ws, num_d) around
+``sgm.inputs`` (resizes, range maps, the copies to the card),
+``sgm.program`` (the eager body, or a capture or replay),
+``sgm.download`` (the winners to the host) and ``sgm.check``
+(cross-check, speckle filter, sub-pixel); the counters ``sgm.pairs``,
+``sgm.levels`` and ``sgm.volume_cells`` (2 hs ws num_d a level).
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from openmvs_tpu_torch.ops import _build
 from openmvs_tpu_torch.ops.pm_kernel import count_launch
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils.fmath import exp_xla, fma, rsqrt
+from openmvs_tpu_torch.utils.log import count, span
 
 CMAX = np.uint8(255)          # invalid / worst cost (SemiGlobalMatcher.cpp)
 _BIG = 1e9                    # the DP's out-of-range carry, exact in float32
@@ -955,10 +964,13 @@ def _match_level(A: np.ndarray, B: np.ndarray, lo, hi, loR, hiR, l_min: int,
     Returns (left disparities, left winner costs, right disparities, and
     with ``subpixel`` the left winner's two neighbouring costs) as numpy,
     the only data the host steps read."""
-    ins = [torch.as_tensor(a, device=dev)
-           for a in _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)]
-    out = _level_body(*ins, num_d, p1, p2, alpha, beta, num_dirs, subpixel)
-    return _level_result(out, l_min, num_d)
+    with span("sgm.inputs"):
+        ins = [torch.as_tensor(a, device=dev)
+               for a in _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)]
+    with span("sgm.program"):
+        out = _level_body(*ins, num_d, p1, p2, alpha, beta, num_dirs, subpixel)
+    with span("sgm.download"):
+        return _level_result(out, l_min, num_d)
 
 
 class LevelProgram:
@@ -967,8 +979,9 @@ class LevelProgram:
     buffers: the counterpart of the JAX package's jitted ``_wzncc_volume0``,
     ``mask_volume`` and ``aggregate8`` for one level. Eagerly a level is
     some 4,000 launches from Python; on a card the program captures
-    ``_level_body`` once as a CUDA graph (``graphs.Runner``: its lock, pool
-    and stream) and each later ``run`` is one replay.
+    ``_level_body`` once as a CUDA graph (through the ``graphs.Runner`` that
+    keeps it, handed to each ``run``: its lock, pool and stream) and each
+    later ``run`` is one replay.
 
     Buffers: the two images, lo and hi of both matches and their d_mins,
     filled with ``copy_`` before each run, so one graph serves every pair
@@ -979,10 +992,8 @@ class LevelProgram:
     runs the body on the same buffers (the program's CPU form). A capture
     or replay that fails raises."""
 
-    def __init__(self, runner, hs: int, ws: int, num_d: int, p1, p2, alpha, beta,
+    def __init__(self, dev, hs: int, ws: int, num_d: int, p1, p2, alpha, beta,
                  num_dirs: int, subpixel: bool):
-        dev = runner.device
-        self.runner = runner
         self.args = (num_d, p1, p2, alpha, beta, num_dirs, subpixel)
         self.ins = (torch.zeros((2, hs, ws), dtype=torch.float32, device=dev),
                     torch.zeros((2, hs, ws), dtype=torch.int16, device=dev),
@@ -1001,19 +1012,84 @@ class LevelProgram:
             for dst, src in zip(self.outs, out):
                 dst.copy_(src)
 
-    def run(self, A, B, lo, hi, loR, hiR, l_min: int) -> List[np.ndarray]:
-        """``_match_level``'s result for one pair of the class."""
+    def run(self, runner, A, B, lo, hi, loR, hiR, l_min: int) -> List[np.ndarray]:
+        """``_match_level``'s result for one pair of the class, captured
+        and replayed through ``runner``, the one that keeps this program."""
         num_d = self.args[0]
-        for dst, src in zip(self.ins, _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)):
-            dst.copy_(torch.from_numpy(src))
-        if self.graph is None and self.runs > 0 and self.ins[0].is_cuda:
-            self.graph = self.runner.capture(self._body, self.effects)
-        if self.graph is None:
-            self._body()
-        else:
-            self.runner.replay(self.graph, self.effects)
+        with span("sgm.inputs"):
+            for dst, src in zip(self.ins,
+                                _level_inputs(A, B, lo, hi, loR, hiR, l_min, num_d)):
+                dst.copy_(torch.from_numpy(src))
+        with span("sgm.program"):
+            if self.graph is None and self.runs > 0 and self.ins[0].is_cuda:
+                self.graph = runner.capture(self._body, self.effects)
+            if self.graph is None:
+                self._body()
+            else:
+                runner.replay(self.graph, self.effects)
         self.runs += 1
-        return _level_result(self.outs, l_min, num_d)
+        with span("sgm.download"):
+            return _level_result(self.outs, l_min, num_d)
+
+
+def _level_windows(disp: Optional[np.ndarray], shape, glo: int, ghi: int,
+                   first_up: bool):
+    """The per-pixel windows (lo, hi, loR, hiR) of a level's left and right
+    matches: the global range [glo, ghi) at the coarsest level (``disp``
+    None), else from the previous level's disparities (``first_up``: the
+    first upsample, with its wider minimum windows)."""
+    hs, ws = shape
+    if disp is None:
+        return (np.full((hs, ws), glo, np.int16), np.full((hs, ws), ghi, np.int16),
+                np.full((hs, ws), -ghi, np.int16), np.full((hs, ws), -glo, np.int16))
+    mnd, mnd_i = (11, 33) if first_up else (5, 7)
+    # fallback window for pixels with <3 neighborhood samples: a
+    # min_num_disp_invalid-wide band at the global midpoint, the
+    # role of the reference's +-minNumDispInvalid around 0
+    # (SemiGlobalMatcher.cpp:1387-1390), not the whole global range
+    mid = (glo + ghi) // 2
+    fb = (max(glo, mid - mnd_i), min(ghi, mid + mnd_i))
+    if first_up and os.environ.get("OMVS_SGM_FB") == "full":
+        # pixels invalidated at the coarsest level get one
+        # full-range chance at the first upsample
+        fb = (glo, ghi)
+    lo, hi = disparity_range_map(disp, (hs, ws), mnd, mnd_i, global_range=fb)
+    dR = _flip_disparity(disp)
+    loR, hiR = disparity_range_map(dR, (hs, ws), mnd, mnd_i,
+                                   global_range=(-fb[1], -fb[0]))
+    return lo, hi, loR, hiR
+
+
+def _level_extent(lo: np.ndarray, hi: np.ndarray, li: int, max_num_d: int,
+                  ladder: Sequence[int]) -> Tuple[int, int, int, int]:
+    """(l_min, l_max, span, num_d): the level-global bounds that hug the
+    left match's per-pixel windows, and the volume depth on the ladder."""
+    l_min = int(lo.min())
+    l_max = int(hi.max())
+    d_span = l_max - l_min
+    if d_span > max_num_d:
+        # the volume cannot cover the whole span: place the coverage
+        # window where it keeps the most per-pixel ranges alive
+        cand = np.unique(np.linspace(
+            l_min, l_max - max_num_d, 17).astype(int))
+        covered = [int(((lo >= c) & (hi <= c + max_num_d)).sum())
+                   for c in cand]
+        l_min = int(cand[int(np.argmax(covered))])
+        n_lost = lo.size - max(covered)
+        if n_lost:
+            from openmvs_tpu_torch.utils.log import get_logger
+            get_logger("sgm").warning(
+                "disparity span %d > max_num_d %d at level %d: "
+                "%d/%d pixels' ranges fall outside the coverage window",
+                d_span, max_num_d, li, n_lost, lo.size)
+    num_d = min(l_max - l_min, max_num_d)
+    if num_d <= 1:
+        num_d = 2
+    # the volume depth on a short ladder (OMVS_SGM_ND_LADDER): it sets
+    # the DP's disparity domain, so it is behaviour, not layout
+    num_d = min(next((b for b in ladder if b >= num_d), ladder[-1]),
+                max_num_d)
+    return l_min, l_max, d_span, num_d
 
 
 def match_pair_tsgm(
@@ -1051,6 +1127,7 @@ def match_pair_tsgm(
         # nothing to match — the caller's cluster fusion drops empty maps
         return (np.full((H, W), np.nan, np.float32),
                 np.zeros((H, W), np.float32))
+    count("sgm.pairs")
     # pyramid scales: the coarsest level sits at 1/max(2, 2^l) with l from
     # computeMaxResolution(max_dim, 8, min_resolution) — tSGM always runs
     # at least one half-resolution level (SemiGlobalMatcher.cpp:585-591),
@@ -1067,86 +1144,44 @@ def match_pair_tsgm(
 
     disp = None
     cost_map = None
-    first_up = True
     for li, s in enumerate(scales):
         t_lv = time.perf_counter()
         hs, ws = max(1, round(H * s)), max(1, round(W * s))
-        A = imio.resize_area(rectA, ws, hs) if s != 1 else rectA
-        B = imio.resize_area(rectB, ws, hs) if s != 1 else rectB
         glo, ghi = int(np.floor(d_lo * s)) - 8, int(np.ceil(d_hi * s)) + 8
-        if disp is None:
-            lo = np.full((hs, ws), glo, np.int16)
-            hi = np.full((hs, ws), ghi, np.int16)
-            loR = np.full((hs, ws), -ghi, np.int16)
-            hiR = np.full((hs, ws), -glo, np.int16)
-        else:
-            mnd, mnd_i = (11, 33) if first_up else (5, 7)
-            was_first_up = first_up
-            first_up = False
-            # fallback window for pixels with <3 neighborhood samples: a
-            # min_num_disp_invalid-wide band at the global midpoint, the
-            # role of the reference's +-minNumDispInvalid around 0
-            # (SemiGlobalMatcher.cpp:1387-1390), not the whole global range
-            mid = (glo + ghi) // 2
-            fb = (max(glo, mid - mnd_i), min(ghi, mid + mnd_i))
-            if was_first_up and os.environ.get("OMVS_SGM_FB") == "full":
-                # pixels invalidated at the coarsest level get one
-                # full-range chance at the first upsample
-                fb = (glo, ghi)
-            lo, hi = disparity_range_map(disp, (hs, ws), mnd, mnd_i,
-                                         global_range=fb)
-            dR = _flip_disparity(disp)
-            loR, hiR = disparity_range_map(dR, (hs, ws), mnd, mnd_i,
-                                           global_range=(-fb[1], -fb[0]))
-        # level-global bounds hug the per-pixel windows
-        l_min = int(lo.min())
-        l_max = int(hi.max())
-        span = l_max - l_min
-        if span > max_num_d:
-            # the volume cannot cover the whole span: place the coverage
-            # window where it keeps the most per-pixel ranges alive
-            cand = np.unique(np.linspace(
-                l_min, l_max - max_num_d, 17).astype(int))
-            covered = [int(((lo >= c) & (hi <= c + max_num_d)).sum())
-                       for c in cand]
-            l_min = int(cand[int(np.argmax(covered))])
-            n_lost = lo.size - max(covered)
-            if n_lost:
-                from openmvs_tpu_torch.utils.log import get_logger
-                get_logger("sgm").warning(
-                    "disparity span %d > max_num_d %d at level %d: "
-                    "%d/%d pixels' ranges fall outside the coverage window",
-                    span, max_num_d, li, n_lost, lo.size)
-        num_d = min(l_max - l_min, max_num_d)
-        if num_d <= 1:
-            num_d = 2
-        # the volume depth on a short ladder (OMVS_SGM_ND_LADDER): it sets
-        # the DP's disparity domain, so it is behaviour, not layout
-        num_d = min(next((b for b in ladder if b >= num_d), ladder[-1]),
-                    max_num_d)
+        with span("sgm.level", level=li, hs=hs, ws=ws) as lv:
+            with span("sgm.inputs"):
+                A = imio.resize_area(rectA, ws, hs) if s != 1 else rectA
+                B = imio.resize_area(rectB, ws, hs) if s != 1 else rectB
+                lo, hi, loR, hiR = _level_windows(disp, (hs, ws), glo, ghi, li == 1)
+                l_min, l_max, d_span, num_d = _level_extent(lo, hi, li, max_num_d, ladder)
+            lv.attrs["num_d"] = num_d  # known once the windows are
+            count("sgm.levels")
+            count("sgm.volume_cells", 2 * hs * ws * num_d)
 
-        last = li == len(scales) - 1
-        sub = last and subpixel_mode not in ("na", None)
-        if runner is None:
-            res = _match_level(A, B, lo, hi, loR, hiR, l_min, num_d, p1, p2, alpha,
-                               beta, num_dirs, sub, dev)
-        else:
-            cls = (hs, ws, num_d, p1, p2, alpha, beta, num_dirs, sub)
-            prog = runner.kept(("sgm_level",) + cls, lambda: LevelProgram(runner, *cls))
-            res = prog.run(A, B, lo, hi, loR, hiR, l_min)
-        dintL, costL, dintR = res[0].astype(np.int32), res[1], res[2].astype(np.int32)
-        if sub:
-            dsub = _subpixel(costL, res[3], res[4], dintL, subpixel_mode)
-        else:
-            dsub = dintL.astype(np.float32)
-        # cross-check |dL(x) + dR(x + dL)| <= 1
-        xs = np.arange(ws)[None, :] + dintL
-        xi = np.clip(xs, 0, ws - 1)
-        dr = np.take_along_axis(dintR, xi, axis=1)
-        ok = (np.abs(dintL + dr) <= 1) & (xs >= 0) & (xs < ws)
-        disp = np.where(ok, dsub, np.nan).astype(np.float32)
-        if li == 0 and tsgm:
-            disp = _speckle_filter(disp)
+            last = li == len(scales) - 1
+            sub = last and subpixel_mode not in ("na", None)
+            if runner is None:
+                res = _match_level(A, B, lo, hi, loR, hiR, l_min, num_d, p1, p2, alpha,
+                                   beta, num_dirs, sub, dev)
+            else:
+                cls = (hs, ws, num_d, p1, p2, alpha, beta, num_dirs, sub)
+                prog = runner.kept(("sgm_level",) + cls, lambda: LevelProgram(dev, *cls))
+                res = prog.run(runner, A, B, lo, hi, loR, hiR, l_min)
+            with span("sgm.check"):
+                dintL, costL, dintR = (res[0].astype(np.int32), res[1],
+                                       res[2].astype(np.int32))
+                if sub:
+                    dsub = _subpixel(costL, res[3], res[4], dintL, subpixel_mode)
+                else:
+                    dsub = dintL.astype(np.float32)
+                # cross-check |dL(x) + dR(x + dL)| <= 1
+                xs = np.arange(ws)[None, :] + dintL
+                xi = np.clip(xs, 0, ws - 1)
+                dr = np.take_along_axis(dintR, xi, axis=1)
+                ok = (np.abs(dintL + dr) <= 1) & (xs >= 0) & (xs < ws)
+                disp = np.where(ok, dsub, np.nan).astype(np.float32)
+                if li == 0 and tsgm:
+                    disp = _speckle_filter(disp)
         cost_map = costL
         wall = time.perf_counter() - t_lv
         if stats is not None:
@@ -1154,7 +1189,7 @@ def match_pair_tsgm(
                           "l_min": l_min, "seconds": wall})
         if debug:
             print(f"SGM_DEBUG level={li} hw=({hs},{ws}) num_d={num_d} "
-                  f"lmin={l_min} lmax={l_max} span={span} "
+                  f"lmin={l_min} lmax={l_max} span={d_span} "
                   f"glob=({glo},{ghi}) "
                   f"valid={np.isfinite(disp).mean():.3f} "
                   f"wall={wall:.2f}s", flush=True)
