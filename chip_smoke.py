@@ -155,7 +155,12 @@ Phases, each printing one JSON line:
                   the level shapes (2, 240, 320) with D 32 and 64 and (2,
                   480, 640) with D 64 and 128, with ms, plain ms and the
                   bound; match_pair_tsgm(max_num_d=512) on a 120x160 pair
-                  with a widened range, card equal to CPU
+                  with a widened range, card equal to CPU; rectify_warp
+                  (each pair of the call rectified on the card, one launch a
+                  pair) against the host warp bit for bit on view 0's pair
+                  and at the benchmark's 800x600: the kernel's ms from the
+                  profiler, the card step (upload, launch, download) and
+                  rectify_pair's against the host warp's, and the bound
  13. pipeline   - phase densify's cloud through the rest of the chain:
                   reconstruct.reconstruct_mesh(scene, MeshOptions()) on the
                   host (points before and after dedup, tets, raw faces,
@@ -500,6 +505,10 @@ KERNEL_LINE = (
     ("sgm_scan", "sgm_scan.cu", "openmvs_tpu/ops/sgm.py:519", "sgm"),
     ("wzncc_volume", "wzncc_volume.cu", "openmvs_tpu/ops/sgm.py:335", "sgm"),
     ("segment_sum", "segment_sum.cu", "openmvs_tpu/refine.py:531", "refine"),
+    # SGM's rectification, where the JAX package calls cv2.warpPerspective
+    # on the host (a row of one 800x600 pair, both images)
+    ("rectify_warp", "rectify_warp.cu",
+     "none: host cv2.warpPerspective, openmvs_tpu/ops/sgm.py:269-270", "sgm"),
     # the cross-view filter's kernels, where the JAX package has host NumPy
     # and no TPU kernel (rows of one 800x600 view with 8 neighbours)
     ("filter_splat", "filter_splat.cu",
@@ -2420,7 +2429,7 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     import torch
 
     from openmvs_tpu_torch import densify
-    from openmvs_tpu_torch.ops import pm_kernel, sgm
+    from openmvs_tpu_torch.ops import pm_kernel, rectify_kernel, sgm
 
     pairs = []
     match = sgm.match_pair_tsgm
@@ -2444,12 +2453,14 @@ def _sgm_dense(scene, opts, folder, fusion_mode=0):
     try:
         with _graph_runners() as made:
             pm_kernel.reset_launches()
+            rect0 = rectify_kernel.LAUNCHES["rectify_warp"]
             t0 = time.perf_counter()
             pc = densify.dense_reconstruction(scene, opts, save_dmaps_to=folder,
                                               fusion_mode=fusion_mode, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(pm_kernel.LAUNCHES)
+            launches = dict(pm_kernel.LAUNCHES,
+                            rectify_warp=rectify_kernel.LAUNCHES["rectify_warp"] - rect0)
             graphs_ = _graph_summary(made)
     finally:
         sgm.match_pair_tsgm = match
@@ -2703,6 +2714,104 @@ def _wzncc_rows(card, rectA, rectB, d_lo):
     return recs, row
 
 
+def _host_ms(fn, reps):
+    """Mean host-clock ms of ``fn`` over ``reps`` calls after one warm-up
+    call, each ending in a synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _rectify_rows(card, scene):
+    """rectify_warp against the host warp (io/images.warp_perspective) on
+    the card, on view 0's pair with its best neighbour at the scene's size
+    and at the benchmark's 800x600 (the same warp: both homographies
+    conjugated by the scale, random sources): bit for bit; the kernel's
+    mean ms over the launches torch.profiler records of 20 (after an
+    earlier profile in the process it may miss the first), a graph
+    replay's and eager launches' CUDA-event ms; the card step's host-clock
+    ms (NumPy sources uploaded, one launch, the pair downloaded:
+    rectify_pair's card path less its 3x3 algebra) against the host warp
+    of both images; at the scene's size rectify_pair itself, on the card
+    and on the host; and the bound (bytes: both sources read once, both
+    images written once). Returns the records and the kernels line's row
+    (800x600)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmvs_tpu_torch.io.images import warp_perspective
+    from openmvs_tpu_torch.ops import rectify_kernel, sgm
+
+    dev = torch.device("cuda")
+    img = scene.images[0]
+    nb = next(im for im in scene.images if im.meta.id == img.meta.view_scores[0].id)
+    camA, camB = img.working_camera(), nb.working_camera()
+    _, _, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
+    h, w = img.gray.shape
+    rng = np.random.default_rng(800)
+    recs = []
+    for H, W in ((h, w), (600, 800)):
+        if (H, W) == (h, w):
+            srcs = [np.asarray(img.gray, np.float32), np.asarray(nb.gray, np.float32)]
+            Ts = [info["TA"], info["TB"]]
+        else:
+            srcs = [rng.uniform(0, 1, (H, W)).astype(np.float32) for _ in range(2)]
+            S = np.diag([W / w, H / h, 1.0])
+            Ts = [S @ info[k] @ np.linalg.inv(S) for k in ("TA", "TB")]
+        on_card = [torch.from_numpy(s).to(dev) for s in srcs]
+
+        def launch():
+            return rectify_kernel.warp_pair(*on_card, *Ts, W, H)
+
+        def step():
+            return rectify_kernel.warp_pair(
+                *(torch.as_tensor(s, device=dev) for s in srcs), *Ts, W, H).cpu().numpy()
+
+        got = step()
+        want, host_s = _wall_s(lambda: [warp_perspective(s, T, W, H)
+                                        for s, T in zip(srcs, Ts)])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                launch()
+            torch.cuda.synchronize()
+        kernel_us = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "rectify_warp" in e.name]
+        nbytes = 4 * (srcs[0].size + srcs[1].size) + 4 * 2 * H * W
+        rec = {"phase": "sgm", "kernel": "rectify_warp", "shape": [2, H, W],
+               "bit_equal": all(np.array_equal(got[k].view(np.uint32), want[k].view(np.uint32))
+                                for k in range(2)),
+               "max_abs_err": max(float(np.abs(got[k] - want[k]).max()) for k in range(2)),
+               "ms": sum(kernel_us) / len(kernel_us) / 1e3 if kernel_us else None,
+               "profiled_launches": len(kernel_us),
+               "graph_ms": cuda_ms(launch, 20, graph=True), "eager_ms": cuda_ms(launch, 20),
+               "step_ms": _host_ms(step, 20), "plain_ms": host_s * 1e3,
+               "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+               "library_ms": None,
+               "library_note": "no PyTorch call repeats OpenCV's warp to the bit",
+               "card": card}
+        if (H, W) == (h, w):
+            rec["rectify_pair_card_ms"] = _host_ms(
+                lambda: sgm.rectify_pair(camA, camB, img.gray, nb.gray, device=dev), 20)
+            _, host_s = _wall_s(lambda: sgm.rectify_pair(camA, camB, img.gray, nb.gray))
+            rec["rectify_pair_host_ms"] = host_s * 1e3
+        emit(rec)
+        recs.append(rec)
+    if not all(r["bit_equal"] for r in recs):
+        raise RuntimeError("rectify_warp differs from the host warp")
+    if not all(r["profiled_launches"] for r in recs):
+        raise RuntimeError("the profiler saw no rectify_warp launch")
+    return recs, dict(recs[1])
+
+
 def _sgm_scan_wide_rows(card):
     """sgm_scan past the register path, D 257, 384 and 512, on a small
     batch (2, 60, 80) of seeded integer costs: vertical (shift 0) and
@@ -2864,6 +2973,7 @@ def phase_sgm(card, scene, gts):
     _sgm_scan_wide_rows(card)
     _, wzncc_row = _wzncc_rows(card, rectA, rectB, d_lo)
     wide = _sgm_wide_pair(card, rectA, rectB, d_lo, d_hi)
+    _, rectify_row = _rectify_rows(card, scene)
 
     H, W = scene.images[0].gray.shape
     rec = {"phase": "sgm", "views": n, "H": H, "W": W,
@@ -2879,7 +2989,8 @@ def phase_sgm(card, scene, gts):
                               for p in pairs],
            "max_memory_allocated_bytes": peak, "kernel_launches": launches,
            "sgm_scan_launches": launches["sgm_scan"], "sgm_scan_aggregate8": scan_row,
-           "wzncc_volume_launches": launches["wzncc_volume"], "graphs": call_graphs,
+           "wzncc_volume_launches": launches["wzncc_volume"],
+           "rectify_warp_launches": launches["rectify_warp"], "graphs": call_graphs,
            "accuracy": [a for a, _ in q], "completeness": [c for _, c in q],
            "jax_accuracy": JAX_SGM_ACCURACY, "jax_completeness": JAX_SGM_COMPLETENESS,
            "export_resume": export, "pair_card_vs_cpu": vs_cpu, "pair_profile": prof,
@@ -2888,8 +2999,12 @@ def phase_sgm(card, scene, gts):
     emit(rec)
     if len(pc) == 0 or len(maps) != n:
         raise RuntimeError(f"SGM densify gave {len(maps)} maps and {len(pc)} points")
-    if any(n for k, n in launches.items() if k not in ("sgm_scan", "wzncc_volume")):
+    if any(n for k, n in launches.items()
+           if k not in ("sgm_scan", "wzncc_volume", "rectify_warp")):
         raise RuntimeError(f"the SGM path launched PatchMatch kernels: {launches}")
+    if launches["rectify_warp"] != len(pairs):
+        raise RuntimeError(f"{launches['rectify_warp']} rectify_warp launches for "
+                           f"{len(pairs)} pairs matched on the card")
     for i, (acc, comp) in enumerate(q):
         if acc < 0.95 * JAX_SGM_ACCURACY[i] or comp < 0.95 * JAX_SGM_COMPLETENESS[i]:
             raise RuntimeError(f"view {i}: SGM quality {(acc, comp)} below 95% of the "
@@ -2918,7 +3033,8 @@ def phase_sgm(card, scene, gts):
         raise RuntimeError(f"the SGM path launched no sgm_scan or wzncc_volume: {launches}")
     if not (call_graphs["captures"] and call_graphs["replays"]):
         raise RuntimeError(f"the SGM call captured or replayed no level: {call_graphs}")
-    return {"sgm_scan": scan_row, "wzncc_volume": wzncc_row}, launches
+    return {"sgm_scan": scan_row, "wzncc_volume": wzncc_row,
+            "rectify_warp": rectify_row}, launches
 
 
 def _reconstruct(scene, pc):

@@ -515,7 +515,9 @@ def estimate_depth_map_sgm(
 
     Spans: ``sgm.view`` (view) around ``sgm.pair`` (view, neighbour) per
     pair, which holds ``sgm.rectify``, the matcher's ``sgm.level`` spans
-    and ``sgm.project``; then ``sgm.fuse`` (view)."""
+    and ``sgm.project``; then ``sgm.fuse`` (view). On the card each pair is
+    rectified there, and the reference image, uploaded once a view for its
+    pairs, has an ``sgm.rectify`` (view) of its own before them."""
     dev = devmod.resolve(device)
     if _eager or (runners is None and dev.type != "cuda"):
         runners = None
@@ -543,6 +545,10 @@ def _estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev,
          for i, v in enumerate(scene.pointcloud.views) if img.meta.id in v],
         np.float64).reshape(-1, 3)
 
+    gray = img.gray
+    if dev.type == "cuda":
+        with span("sgm.rectify", view=ref_idx):
+            gray = torch.as_tensor(gray, dtype=torch.float32, device=dev).contiguous()
     pair_maps = []
     for vs in neighbors[:num]:
         j = id_to_idx.get(vs.id)
@@ -551,7 +557,8 @@ def _estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev,
         nb = scene.images[j]
         camB = nb.working_camera()
         with span("sgm.pair", view=ref_idx, neighbour=vs.id):
-            pair = _sgm_pair(camA, camB, img, nb, pts_ref, opts, dimap_dir, dev, runners)
+            pair = _sgm_pair(camA, camB, img, nb, gray, pts_ref, opts, dimap_dir, dev,
+                             runners)
         if pair is not None:
             pair_maps.append(pair)
 
@@ -581,15 +588,16 @@ def _estimate_depth_map_sgm(scene, ref_idx, opts, dimap_dir, dev,
     )
 
 
-def _sgm_pair(camA: Camera, camB: Camera, img, nb, pts_ref: np.ndarray,
+def _sgm_pair(camA: Camera, camB: Camera, img, nb, gray, pts_ref: np.ndarray,
               opts: DenseOptions, dimap_dir: Optional[str], dev, runners):
-    """One scored pair of an SGM view: rectified, matched (or read from its
-    ``.dimap`` cache) and projected into the reference camera as
-    ``(depth, lo, hi, conf)``; None for a degenerate baseline."""
+    """One scored pair of an SGM view: rectified on ``dev`` (``gray`` the
+    reference image, on ``dev`` already where that is a card), matched (or
+    read from its ``.dimap`` cache) and projected into the reference camera
+    as ``(depth, lo, hi, conf)``; None for a degenerate baseline."""
     H, W = img.gray.shape
     with span("sgm.rectify"):
         try:
-            rectA, rectB, info = sgm.rectify_pair(camA, camB, img.gray, nb.gray)
+            rectA, rectB, info = sgm.rectify_pair(camA, camB, gray, nb.gray, device=dev)
         except ValueError:
             return None
 

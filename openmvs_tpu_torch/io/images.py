@@ -439,6 +439,12 @@ def _invert3(M: np.ndarray) -> list:
             (S[0][0] * S[1][1] - S[0][1] * S[1][0]) * d]
 
 
+def warp_inverse(M: np.ndarray) -> np.ndarray:
+    """The 9 float32 of ``M``'s inverse (row-major) that ``warp_perspective``
+    samples through: ``_invert3`` in float64, rounded to float32."""
+    return np.asarray(_invert3(M), np.float64).astype(np.float32)
+
+
 def _fma32(a, b, c) -> np.ndarray:
     """float32 a * b + c rounded once (the product is exact in float64)."""
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
@@ -464,7 +470,7 @@ def warp_perspective(img: np.ndarray, M: np.ndarray, width: int, height: int
     if img.ndim != 2:
         raise ValueError("warp_perspective takes a 2-D float32 image")
     h, w = img.shape
-    m = np.asarray(_invert3(M), np.float64).astype(np.float32)
+    m = warp_inverse(M)
     xs = np.arange(width, dtype=np.float32)[None, :]
     ys = np.arange(height, dtype=np.float32)[:, None]
 

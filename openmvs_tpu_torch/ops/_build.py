@@ -140,6 +140,15 @@ SIGNATURES = {
         "filter_clear_launch": [P, L, P],  # words, n, stream
         "filter_max_neighbours": [],
     },
+    "rectify_warp": {
+        "rectify_warp_launch": [
+            P, I, I,            # src_a (ha, wa), ha, wa
+            P, I, I,            # src_b (hb, wb), hb, wb
+            P,                  # inverses: 2 x 9 float32 (host)
+            P, I, I,            # out (2, H, W), H, W
+            P,                  # stream
+        ],
+    },
     "segment_sum": {
         "segment_sum_launch": [
             P, P, P, P,         # order (R,), offsets (n + 1,), src (R, K), out (n, K)

@@ -40,8 +40,10 @@ volumes, ``aggregate8`` and the winners) runs op by op
 Host steps stay numpy and scipy, as in the JAX package: the range maps,
 the disparity flip, the sub-pixel fits, the speckle filter (OpenCV's
 filterSpeckles rebuilt on scipy's connected components), rectification
-(``io/images.warp_perspective`` for cv2.warpPerspective), and the depth
-projection and fusion.
+off the card (``io/images.warp_perspective`` for cv2.warpPerspective), and
+the depth projection and fusion. A pair matched on the card is rectified
+there: one launch of ``csrc/rectify_warp.cu`` (``ops/rectify_kernel``)
+warps both images, bit-equal to the host warp.
 
 Traced through ``utils/log`` (never inside a level's body): per level of
 ``match_pair_tsgm`` the span ``sgm.level`` (level, hs, ws, num_d) around
@@ -49,7 +51,9 @@ Traced through ``utils/log`` (never inside a level's body): per level of
 ``sgm.program`` (the eager body, or a capture or replay),
 ``sgm.download`` (the winners to the host) and ``sgm.check``
 (cross-check, speckle filter, sub-pixel); the counters ``sgm.pairs``,
-``sgm.levels`` and ``sgm.volume_cells`` (2 hs ws num_d a level).
+``sgm.levels`` and ``sgm.volume_cells`` (2 hs ws num_d a level); the
+counter ``sgm.card_rectifications`` (each pair ``rectify_pair`` warps on a
+card).
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from openmvs_tpu_torch.io import images as imio
-from openmvs_tpu_torch.ops import _build
+from openmvs_tpu_torch.ops import _build, rectify_kernel
 from openmvs_tpu_torch.ops.pm_kernel import count_launch
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils.fmath import exp_xla, fma, rsqrt
@@ -435,12 +439,16 @@ def match_rectified(left, right, d_min: int, num_d: int,
 
 
 # ----------------------------------------------------- rectification helpers
-def rectify_pair(camA, camB, grayA: np.ndarray, grayB: np.ndarray):
+def rectify_pair(camA, camB, grayA, grayB, device=None):
     """Fusiello-style rectification of an arbitrary calibrated pair
     (Image::StereoRectify role, libs/MVS/Image.h:94-101).
 
     Returns (rectA, rectB, info) where correspondence is a pure horizontal
     shift: the new camera shares a rotation whose x-axis is the baseline.
+    The images are float32 NumPy. On a CUDA ``device`` both are warped by
+    one ``rectify_warp`` launch (``grayA``/``grayB`` NumPy or already on
+    that device) and downloaded, counted as ``sgm.card_rectifications``;
+    otherwise by ``io/images.warp_perspective``, to the same bits.
     """
     C1, C2 = camA.C, camB.C
     baseline = C2 - C1
@@ -458,8 +466,14 @@ def rectify_pair(camA, camB, grayA: np.ndarray, grayB: np.ndarray):
     H, W = grayA.shape
     TA = Kn @ Rn @ camA.R.T @ np.linalg.inv(camA.K)
     TB = Kn @ Rn @ camB.R.T @ np.linalg.inv(camB.K)
-    rectA = imio.warp_perspective(grayA, TA.astype(np.float64), W, H)
-    rectB = imio.warp_perspective(grayB, TB.astype(np.float64), W, H)
+    if device is not None and torch.device(device).type == "cuda":
+        srcA, srcB = (torch.as_tensor(g, dtype=torch.float32, device=device).contiguous()
+                      for g in (grayA, grayB))
+        rectA, rectB = rectify_kernel.warp_pair(srcA, srcB, TA, TB, W, H).cpu().numpy()
+        count("sgm.card_rectifications")
+    else:
+        rectA = imio.warp_perspective(grayA, TA.astype(np.float64), W, H)
+        rectB = imio.warp_perspective(grayB, TB.astype(np.float64), W, H)
     info = {"Rn": Rn, "Kn": Kn, "baseline": b, "TA": TA, "TB": TB,
             "C1": camA.C}
     return rectA, rectB, info

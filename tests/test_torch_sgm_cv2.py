@@ -5,15 +5,22 @@ rectification) and ``ops/sgm.filter_speckles`` for ``cv2.filterSpeckles``.
 Tolerances: the speckle filter exactly; the warp within 1e-5 and bit for
 bit on at least 99.9% of pixels (it is bit-exact on every case here: the
 rebuild repeats OpenCV 5's float32 arithmetic, and only a coordinate that
-rounds differently in the inverse's last bit would move a sample)."""
+rounds differently in the inverse's last bit would move a sample).
+
+OpenCV is imported by the ``cv2`` fixture, so ``_rectifications`` imports
+where it is missing (``test_torch_rectify_card.py`` holds the card's warp
+to the same cases)."""
 
 import numpy as np
 import pytest
 
-cv2 = pytest.importorskip("cv2")
+from openmvs_tpu_torch.io.images import warp_perspective
+from openmvs_tpu_torch.ops import sgm as tsgm
 
-from openmvs_tpu_torch.io.images import warp_perspective  # noqa: E402
-from openmvs_tpu_torch.ops import sgm as tsgm  # noqa: E402
+
+@pytest.fixture
+def cv2():
+    return pytest.importorskip("cv2")
 
 
 def _rectifications():
@@ -39,7 +46,7 @@ def _rectifications():
 
 
 @pytest.mark.parametrize("case", _rectifications(), ids=lambda c: c[0])
-def test_warp_perspective_matches_cv2(case):
+def test_warp_perspective_matches_cv2(cv2, case):
     _, M, H, W = case
     src = np.random.default_rng(0).uniform(0, 1, (H, W)).astype(np.float32)
     want = cv2.warpPerspective(src, M.astype(np.float64), (W, H))
@@ -50,7 +57,7 @@ def test_warp_perspective_matches_cv2(case):
 
 
 @pytest.mark.parametrize("max_size,max_diff", [(100, 80), (10, 16), (1, 0), (400, 3)])
-def test_filter_speckles_matches_cv2(max_size, max_diff):
+def test_filter_speckles_matches_cv2(cv2, max_size, max_diff):
     rng = np.random.default_rng(max_size + max_diff)
     for trial in range(3):
         d = np.round(rng.uniform(-500, -80, (57, 83)) / 8).astype(np.int16) * 8
@@ -63,7 +70,7 @@ def test_filter_speckles_matches_cv2(max_size, max_diff):
 
 
 @pytest.mark.parametrize("max_size,max_diff", [(100, 5.0), (20, 1.0)])
-def test_speckle_filter_matches_cv2_on_float_disparities(max_size, max_diff):
+def test_speckle_filter_matches_cv2_on_float_disparities(cv2, max_size, max_diff):
     rng = np.random.default_rng(7)
     disp = (np.round(rng.normal(-20, 3, (64, 96)) * 4) / 4).astype(np.float32)
     disp[rng.random(disp.shape) < 0.2] = np.nan
