@@ -19,12 +19,10 @@ cloud seeds from the mesh's visible samples (``sample_mesh_with_visibility``);
 verbosity above 2 (``utils/log.verbosity``) each saved depth map also gets
 its depth, normal and confidence PNGs (``dump_depth_artifacts``).
 
-Switches read at call time, as the JAX package reads them:
-``OMVS_ALL_EXACT`` (every sweep bilinear), ``OMVS_INIT_EXACT`` (the
-incumbent scored bilinear), ``OMVS_EARLY_EXIT=0`` (no adaptive block) and
-``OMVS_EE_MIN``/``OMVS_EE_EPS``/``OMVS_EE_FRAC`` (its limits),
-``OMVS_ACTIVE=<eps>`` from sweep ``OMVS_ACTIVE_FROM`` (default 2) on
-(convergence skipping of 16-row bands, ``patchmatch._band_flags``),
+The PatchMatch sweep's switches are ``patchmatch.Switches``, read from the
+environment once per ``dense_reconstruction`` or ``estimate_depth_map``
+call; a view's steps are ``patchmatch.schedule``'s and its set-up is
+``setup_view``'s, both shared with the sharded path. Also read:
 ``OMVS_PROFILE_DIR`` (a ``torch.profiler`` trace of the whole call, its
 spans as ranges) and ``OMVS_DEBUG_NANS`` (``utils/safety.check_finite`` on
 each downloaded map).
@@ -157,13 +155,13 @@ def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
-def _assemble_pm_host(ref_gray: np.ndarray, ref_cam: Camera,
-                      nbr_grays: List[np.ndarray], nbr_cams: List[Camera],
-                      opts: DenseOptions, d_min: float, d_max: float,
-                      nbr_depths: Optional[List[np.ndarray]] = None,
-                      usable: Optional[np.ndarray] = None, pad_views: int = 0,
-                      pad_hw: Optional[Tuple[int, int]] = None) -> dict:
-    """Host-side (numpy) assembly of the per-view pack_pm_data operands.
+def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.ndarray],
+                   nbr_cams: List[Camera], opts: DenseOptions, d_min: float, d_max: float,
+                   lowres_prior, nbr_depths: Optional[List[np.ndarray]] = None,
+                   usable: Optional[np.ndarray] = None, device="cuda", pad_views: int = 0,
+                   pad_hw: Optional[Tuple[int, int]] = None) -> patchmatch.PMData:
+    """The static per-view arrays of the PatchMatch sweep, assembled on the
+    host and packed on ``device`` (``patchmatch.pack_pm_data``).
 
     pad_views / pad_hw pad the neighbour-view axis and the neighbour-image
     extents to common sizes, so that the views of the sharded path stack
@@ -199,8 +197,7 @@ def _assemble_pm_host(ref_gray: np.ndarray, ref_cam: Camera,
             dmap = nbr_depths[j]
             depths[j, : dmap.shape[0], : dmap.shape[1]] = dmap
             # geometric-consistency constants (DepthMap.h:170-173)
-            Tl[j] = cam.K @ cam.R @ Ri.T
-            Tm[j] = cam.K @ cam.R @ (Ci - cam.C)
+            Tl[j], Tm[j] = Hl[j], Hm[j]
             Tr[j] = Ki @ Ri @ cam.R.T @ np.linalg.inv(cam.K)
             Tn[j] = Ki @ Ri @ (cam.C - Ci)
 
@@ -214,28 +211,11 @@ def _assemble_pm_host(ref_gray: np.ndarray, ref_cam: Camera,
         if um.shape != (H, W):
             um = imio.resize_nearest(um, W, H)
 
-    return dict(
-        ref_gray=ref_gray.astype(np.float32), images=images, sizes=sizes,
-        Hl=Hl, Hm=Hm, depths=depths, Tl=Tl, Tm=Tm, Tr=Tr, Tn=Tn,
-        KinvT=np.ascontiguousarray(Kinv.T).astype(np.float32),
-        goff=goff.astype(np.float32),
-        d_min=np.float32(d_min), d_max=np.float32(d_max), usable=um,
-    )
-
-
-def _build_pm_data(ref_gray, ref_cam, nbr_grays, nbr_cams, opts, d_min, d_max,
-                   lowres_prior, nbr_depths=None, usable=None,
-                   device="cuda") -> patchmatch.PMData:
-    """The static per-view arrays of the PatchMatch sweep, on ``device``."""
-    h = _assemble_pm_host(ref_gray, ref_cam, nbr_grays, nbr_cams, opts,
-                          d_min, d_max, nbr_depths, usable)
-    H, W = ref_gray.shape
     lowres = lowres_prior if lowres_prior is not None else np.zeros((H, W), np.float32)
     return patchmatch.pack_pm_data(
-        opts, h["ref_gray"], h["images"], h["sizes"], h["Hl"], h["Hm"],
-        h["depths"], h["Tl"], h["Tm"], h["Tr"], h["Tn"], h["KinvT"],
-        h["goff"], h["d_min"], h["d_max"], lowres, h["usable"], device=device,
-    )
+        opts, ref_gray.astype(np.float32), images, sizes, Hl, Hm, depths, Tl, Tm, Tr, Tn,
+        np.ascontiguousarray(Kinv.T).astype(np.float32), goff.astype(np.float32),
+        np.float32(d_min), np.float32(d_max), lowres, um, device=device)
 
 
 class DeferredResult:
@@ -258,6 +238,98 @@ class DeferredResult:
         return r
 
 
+@dataclass
+class ViewSetup:
+    """What a reference view's PatchMatch estimation starts from
+    (``setup_view``), at full working resolution, and its pyramid levels."""
+
+    image: object               # the reference view's scene image
+    nbr_ids: List[int]
+    nbr_imgs: list
+    camera: Camera
+    seed_depth: np.ndarray      # (H, W), 0 where unseeded
+    seed_normal: np.ndarray     # (H, W, 3)
+    d_min: float
+    d_max: float
+
+    def level(self, s: float, neighbor_results: Optional[dict] = None):
+        """(reference gray, its camera, neighbour grays, their cameras,
+        their depth maps) at pyramid scale ``s``; the depths, from
+        ``neighbor_results`` (an 8x8 zero map where one is absent), only
+        where those are given."""
+        ref = _resize_gray(self.image.gray, s)
+        grays = [_resize_gray(n.gray, s) for n in self.nbr_imgs]
+        cams = [n.working_camera() for n in self.nbr_imgs]
+        cam = self.camera
+        if s != 1.0:
+            cam = cam.scaled(ref.shape[1] / self.image.gray.shape[1])
+            cams = [c.scaled(g.shape[1] / n.gray.shape[1])
+                    for c, g, n in zip(cams, grays, self.nbr_imgs)]
+        depths = ([r.depth if (r := neighbor_results.get(i)) is not None
+                   else np.zeros((8, 8), np.float32) for i in self.nbr_ids]
+                  if neighbor_results else None)
+        return ref, cam, grays, cams, depths
+
+    def seeds(self, s: float, shape: Tuple[int, int]):
+        """(depth, normal) seeds at pyramid scale ``s`` on a zero canvas of
+        ``shape``: each seed at its scaled pixel (clipped to the canvas),
+        or copied where ``s`` is 1."""
+        sd = np.zeros(shape, np.float32)
+        sn = np.zeros(shape + (3,), np.float32)
+        if s != 1.0:
+            ys, xs = np.nonzero(self.seed_depth > 0)
+            yy = np.clip((ys * s).astype(int), 0, shape[0] - 1)
+            xx = np.clip((xs * s).astype(int), 0, shape[1] - 1)
+            sd[yy, xx] = self.seed_depth[ys, xs]
+            sn[yy, xx] = self.seed_normal[ys, xs]
+        else:
+            h, w = self.seed_depth.shape
+            sd[:h, :w], sn[:h, :w] = self.seed_depth, self.seed_normal
+        return sd, sn
+
+
+def setup_view(scene: Scene, ref_idx: int, opts: DenseOptions,
+               prev: Optional[DepthMapResult] = None,
+               geometric: bool = False) -> Optional[ViewSetup]:
+    """View ``ref_idx``'s neighbours (its scored views present in the
+    scene, the first ``num_views``), working camera, seeds and depth range;
+    None where it has no neighbour or an empty range. A geometric pass
+    from ``prev`` takes prev's range, depth and normal; otherwise the seeds
+    come from the sparse points the view sees, and the range from ``prev``
+    where given. The serial and the sharded path both start from it."""
+    img = scene.images[ref_idx]
+    neighbors = img.meta.view_scores
+    if not neighbors:
+        return None
+    num = opts.num_views if opts.num_views > 0 else len(neighbors)
+    id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
+    # filter, then slice: an absent scored neighbour backfills with a later
+    # present one, and ids and images stay aligned
+    nbr_ids = [vs.id for vs in neighbors if vs.id in id_to_idx][:num]
+    if not nbr_ids:
+        return None
+    cam = img.working_camera()
+    if prev is not None and geometric:
+        sd, sn, d_min, d_max = prev.depth, prev.normal, prev.d_min, prev.d_max
+    else:
+        pts_sel, trusted = [], []
+        for i, v in enumerate(scene.pointcloud.views):
+            if img.meta.id in v:
+                pts_sel.append(scene.pointcloud.points[i])
+                trusted.append(len(v) >= opts.min_views_trust_point)
+        H, W = img.gray.shape
+        sd, sn, d_min, d_max = seed.seed_depth_normal(
+            cam, W, H, np.asarray(pts_sel, np.float64).reshape(-1, 3),
+            np.asarray(trusted, bool), interpolate=not opts.init_sparse,
+            add_corners=opts.add_corners)
+        if prev is not None:
+            d_min, d_max = prev.d_min, prev.d_max
+    if d_max <= d_min:
+        return None
+    return ViewSetup(img, nbr_ids, [scene.images[id_to_idx[i]] for i in nbr_ids], cam,
+                     sd, sn, d_min, d_max)
+
+
 def estimate_depth_map(
     scene: Scene,
     ref_idx: int,
@@ -269,6 +341,7 @@ def estimate_depth_map(
     defer_download: bool = False,
     device="cuda",
     runners: Optional[graphs.Runners] = None,
+    switches: Optional[patchmatch.Switches] = None,
     _eager: bool = False,
 ):
     """PatchMatch depth estimation for one reference view.
@@ -276,7 +349,8 @@ def estimate_depth_map(
     geometric_iter < 0: photometric pass with the sub-resolution pyramid
     (EstimateDepthMap, SceneDensify.cpp:616-805); otherwise one
     geometric-consistency iteration at full resolution using the neighbors'
-    current depth maps.
+    current depth maps. ``switches`` (``patchmatch.Switches``) are read from
+    the environment where not given.
 
     On the card the sweeps run as CUDA graphs replayed over static buffers
     (``ops/graphs.py``): ``runners`` (a ``dense_reconstruction`` call's)
@@ -285,174 +359,72 @@ def estimate_depth_map(
     form). ``_eager`` runs them eagerly on the card too, the reference the
     graphs are checked against.
     """
+    switches = switches or patchmatch.Switches.from_env()
     with span("pm.view", view=ref_idx,
               **{"pass": "photometric" if geometric_iter < 0 else f"geometric {geometric_iter}"}):
         return _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results,
                                    geometric_iter, rng_seed, defer_download, device,
-                                   runners, _eager)
+                                   runners, switches, _eager)
 
 
 def _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results, geometric_iter,
-                        rng_seed, defer_download, device, runners, _eager):
+                        rng_seed, defer_download, device, runners, switches, _eager):
     dev = devmod.resolve(device)
     runner = None
     if not _eager and (runners is not None or dev.type == "cuda"):
         runner = (runners or graphs.Runners()).get(dev)
-    img = scene.images[ref_idx]
-    neighbors = img.meta.view_scores
-    if not neighbors:
-        return None
-    num = opts.num_views if opts.num_views > 0 else len(neighbors)
-    id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
-    # filter ids and images together so depths and cameras stay aligned
-    nbr_ids = [vs.id for vs in neighbors if vs.id in id_to_idx][:num]
-    if not nbr_ids:
-        return None
-    nbr_imgs = [scene.images[id_to_idx[i]] for i in nbr_ids]
-
-    ref_cam_full = img.working_camera()
-    H, W = img.gray.shape
-    with span("pm.seed"):
-        # sparse seeds at full working resolution
-        pts_sel = []
-        trusted = []
-        for i, v in enumerate(scene.pointcloud.views):
-            if img.meta.id in v:
-                pts_sel.append(scene.pointcloud.points[i])
-                trusted.append(len(v) >= opts.min_views_trust_point)
-        pts_sel = np.asarray(pts_sel, np.float64).reshape(-1, 3)
-        trusted = np.asarray(trusted, bool)
-
-        if prev is not None and geometric_iter >= 0:
-            # geometric re-estimation seeds from the previous pass
-            seed_depth_full = seed_normal_full = None
-            d_min, d_max = prev.d_min, prev.d_max
-        else:
-            seed_depth_full, seed_normal_full, d_min, d_max = seed.seed_depth_normal(
-                ref_cam_full, W, H, pts_sel, trusted,
-                interpolate=not opts.init_sparse, add_corners=opts.add_corners,
-            )
-            if prev is not None:
-                d_min, d_max = prev.d_min, prev.d_max
-    if d_max <= d_min:
-        return None
-
     is_geometric = geometric_iter >= 0
-    levels = 0 if is_geometric else opts.sub_resolution_levels
-    n_iters = 1 if is_geometric else opts.estimation_iters
-    n_exact = max(1, opts.exact_final_iters)
-    n_pert = max(1, opts.random_iters // 2)
+    with span("pm.seed"):
+        view = setup_view(scene, ref_idx, opts, prev, is_geometric)
+    if view is None:
+        return None
+    plan = patchmatch.schedule(opts, switches, is_geometric)
 
-    state_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    lowres_prior = None
-    result_state = None
-    result_cam = None
-    data = None
-    for level in range(levels, -1, -1):
+    lowres_prior = state = None
+    for level in range(plan.levels, -1, -1):
         with span("pm.level", level=level):
             with span("pm.setup"):
                 s = 1.0 / (2 ** level)
-                ref_gray = _resize_gray(img.gray, s)
-                ref_cam = (ref_cam_full.scaled(ref_gray.shape[1] / W) if s != 1.0
-                           else ref_cam_full)
-                nbr_grays = [_resize_gray(n.gray, s) for n in nbr_imgs]
-                nbr_cams = [
-                    n.working_camera().scaled(g.shape[1] / n.gray.shape[1]) if s != 1.0
-                    else n.working_camera()
-                    for n, g in zip(nbr_imgs, nbr_grays)
-                ]
-                nbr_depths = None
-                if is_geometric and neighbor_results:
-                    nbr_depths = []
-                    for i in nbr_ids:
-                        r = neighbor_results.get(i)
-                        nbr_depths.append(r.depth if r is not None
-                                          else np.zeros((8, 8), np.float32))
-
-                h, w = ref_gray.shape
-                if state_dev is None:
-                    if s != 1.0:
-                        sd = np.zeros((h, w), np.float32)
-                        sn = np.zeros((h, w, 3), np.float32)
-                        ys, xs = np.nonzero(seed_depth_full > 0)
-                        yy = np.clip((ys * s).astype(int), 0, h - 1)
-                        xx = np.clip((xs * s).astype(int), 0, w - 1)
-                        sd[yy, xx] = seed_depth_full[ys, xs]
-                        sn[yy, xx] = seed_normal_full[ys, xs]
-                    else:
-                        sd, sn = seed_depth_full, seed_normal_full
-                    if prev is not None and is_geometric:
-                        sd, sn = prev.depth, prev.normal
+                ref_gray, ref_cam, nbr_grays, nbr_cams, nbr_depths = view.level(
+                    s, neighbor_results if is_geometric else None)
+                if state is None:
+                    sd, sn = view.seeds(s, ref_gray.shape)
                 else:
                     # upscale the previous level's estimate as seed + low-res
                     # prior, on the device
-                    sd = _resize_linear(state_dev[0], h, w)
-                    sn = _resize_nearest(state_dev[1], h, w)
+                    sd = _resize_linear(state.depth, *ref_gray.shape)
+                    sn = _resize_nearest(state.normal, *ref_gray.shape)
                     lowres_prior = sd
 
                 data = _build_pm_data(
-                    ref_gray, ref_cam, nbr_grays, nbr_cams, opts, d_min, d_max,
-                    lowres_prior, nbr_depths, usable=img.usable_mask(opts.ignore_mask_label),
-                    device=dev,
-                )
+                    ref_gray, ref_cam, nbr_grays, nbr_cams, opts, view.d_min, view.d_max,
+                    lowres_prior, nbr_depths,
+                    usable=view.image.usable_mask(opts.ignore_mask_label), device=dev)
                 key = rng.prng_key(rng_seed * 7919 + ref_idx * 131 + level
                                    + 1000 * (geometric_iter + 1))
-                nV = len(nbr_grays)
-                pm = graphs.Sweeps(data, opts, nV, is_geometric, runner)
+                pm = graphs.Sweeps(data, opts, len(nbr_grays), is_geometric, runner,
+                                   switches)
             with span("pm.init"):
-                # the incumbent is scored in the first sweep's sampling mode
-                all_exact = bool(os.environ.get("OMVS_ALL_EXACT"))
-                first_mode = "exact" if (all_exact or 0 >= n_iters - n_exact) else "nn"
-                if os.environ.get("OMVS_INIT_EXACT"):
-                    first_mode = "exact"
-                pm.init(key, sd, sn, first_mode)
-            # Sweep schedule: nearest-sample search sweeps as one adaptive
-            # early-exit block (OMVS_EARLY_EXIT=0 runs them one by one), then
-            # exact bilinear final sweeps (the mode switch rescores the
-            # incumbent so candidates compete fairly).
-            n_nn = 0 if all_exact else max(0, n_iters - n_exact)
-            prev_mode = None
-            it0 = 0
-            if os.environ.get("OMVS_EARLY_EXIT", "1") not in ("0", "") and n_nn >= 3:
+                pm.init(key, sd, sn, plan.init_mode)
+            if plan.block is not None:
                 with span("pm.block"):
-                    pm.block(key, n_perturb=n_pert, mode="nn", n_prop=8,
-                             first_fold=1, n_sweeps=n_nn,
-                             min_sweeps=max(0, int(os.environ.get("OMVS_EE_MIN", "2"))),
-                             eps=float(os.environ.get("OMVS_EE_EPS", "5e-3")),
-                             min_frac=float(os.environ.get("OMVS_EE_FRAC", "0.01")))
-                prev_mode = "nn"
-                it0 = n_nn
-            # OMVS_ACTIVE=<eps>: from sweep OMVS_ACTIVE_FROM on, bands where no
-            # pixel improved by more than eps in the previous sweep are
-            # skipped. A mode-switch sweep rescores every confidence, so it
-            # and the sweep after it (whose churn is the rescore's) skip
-            # nothing.
-            try:
-                active_eps = float(os.environ.get("OMVS_ACTIVE", "0") or 0)
-            except ValueError:
-                active_eps = 0.0
-            active_from = int(os.environ.get("OMVS_ACTIVE_FROM", "2"))
-            have_prev = False
-            for it in range(it0, n_iters):
-                mode = "exact" if (it >= n_iters - n_exact or all_exact) else "nn"
-                rescore = prev_mode is not None and mode != prev_mode
-                eps_it = (active_eps if (active_eps and it >= active_from and not rescore
-                                         and have_prev) else 0.0)
-                with span("pm.sweep", mode=mode):
-                    pm.sweep(key, it + 1, mode, rescore, n_perturb=n_pert, n_prop=8,
-                             active_eps=eps_it)
-                have_prev = not rescore
-                prev_mode = mode
+                    pm.block(key, n_perturb=plan.n_perturb, mode="nn", n_prop=8,
+                             first_fold=1, **plan.block._asdict())
+            for step in plan.sweeps:
+                with span("pm.sweep", mode=step.mode):
+                    pm.sweep(key, step.fold, step.mode, step.rescore,
+                             n_perturb=plan.n_perturb, n_prop=8,
+                             active_eps=step.active_eps)
             state = pm.state
-            state_dev = (state.depth, state.normal)
-            result_state, result_cam = state, ref_cam
 
     with span("pm.finalize"):
         geometric_follows = (not is_geometric) and opts.estimation_geometric_iters > 0
-        final = patchmatch.finalize(result_state, data, opts, geometric_follows)
+        # the last level's state, data and camera: full working resolution
+        final = patchmatch.finalize(state, data, opts, geometric_follows)
         template = DepthMapResult(
             image_idx=ref_idx, depth=None, normal=None, conf=None,
-            d_min=d_min, d_max=d_max, neighbor_ids=nbr_ids, camera=result_cam, device=dev,
+            d_min=view.d_min, d_max=view.d_max, neighbor_ids=view.nbr_ids,
+            camera=ref_cam, device=dev,
         )
         deferred = DeferredResult(patchmatch.pack_state(final), template)
     if defer_download:
@@ -798,6 +770,7 @@ def dense_reconstruction(
     reference the graphs are checked against. The sharded path stays
     eager."""
     with profile_trace("densify"), span("densify"), contextlib.ExitStack() as call:
+        switches = patchmatch.Switches.from_env()
         dev = devmod.resolve(device)
         devices = [devmod.resolve(d) for d in devices] if devices else [dev]
         if abs(fusion_mode) == 1 and not save_dmaps_to:
@@ -865,12 +838,12 @@ def dense_reconstruction(
 
             with timed(log, f"photometric pass sharded {mesh.shape}"):
                 results.update(sharded.estimate_views_sharded(
-                    scene, opts, mesh, skip_ids=resumed))
+                    scene, opts, mesh, skip_ids=resumed, switches=switches))
             for gi in range(opts.estimation_geometric_iters):
                 with timed(log, f"geometric pass {gi} sharded"):
                     new = sharded.estimate_views_sharded(
                         scene, opts, mesh, prev_results=results, geometric_iter=gi,
-                        skip_ids=resumed)
+                        skip_ids=resumed, switches=switches)
                 new.update({rid: results[rid] for rid in resumed if rid in results})
                 results = new
         else:
@@ -884,7 +857,7 @@ def dense_reconstruction(
             else:
                 est = lambda i, d: estimate_depth_map(scene, i, opts, defer_download=True,
                                                       device=d, runners=runners,
-                                                      _eager=_eager)
+                                                      switches=switches, _eager=_eager)
             with timed(log, f"photometric pass ({len(todo)} views)"):
                 raw = _run_views_parallel(est, todo, devices)
             for i, r in raw.items():
@@ -904,7 +877,7 @@ def dense_reconstruction(
                         scene, i, opts, prev=results[scene.images[i].meta.id],
                         neighbor_results=results, geometric_iter=gi,
                         defer_download=True, device=d, runners=runners,
-                        _eager=_eager), have, devices)
+                        switches=switches, _eager=_eager), have, devices)
                 # resumed views (and failed re-estimations) keep contributing
                 new_results: Dict[int, DepthMapResult] = dict(results)
                 for i, r in raw.items():

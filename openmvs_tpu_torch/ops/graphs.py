@@ -22,9 +22,9 @@ A ``Runner`` (one device, one thread) owns:
   runner's one memory pool: ``init_state``, the nn sweep, the exact sweep,
   the exact rescoring sweep and the geometric sweep, and the variants the
   switches select (band skipping, the split or unfused geometric sweep).
-  Per-call constants (options, sampling mode, counts, the rescore, the
-  switches read at call time) choose the program; what changes between
-  replays (the view's data, seeds, state and keys) is in static buffers.
+  Per-call constants (options, the ``patchmatch.Switches`` record, sampling
+  mode, counts, the rescore) key the program; what changes between replays
+  (the view's data, seeds, state and keys) is in static buffers.
   Each program reads its keys from a ``rng.KeyTable`` filled before the
   replay, and its host bookkeeping (launch and band counts) runs after
   each replay (``pm_kernel.host_effect``);
@@ -66,7 +66,6 @@ from __future__ import annotations
 
 import functools
 import gc
-import os
 import threading
 import time
 from typing import Dict, Optional
@@ -80,8 +79,6 @@ from openmvs_tpu_torch.ops.patchmatch import PMData, PMState, PMViews
 from openmvs_tpu_torch.utils import rng
 from openmvs_tpu_torch.utils.log import count, span
 
-# switches the sweep reads when it runs, hence when it is captured
-_SWITCHES = ("OMVS_GEOM_SPLIT", "OMVS_GEOM_FUSED", "OMVS_OLD_RNG", "OMVS_GEOM_DEBUG")
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -137,14 +134,15 @@ class _Program:
         self.graph = None
 
 
-def _init_body(b: _Buffers, opts, use_geom, mode, root):
+def _init_body(b: _Buffers, opts, use_geom, switches, mode, root):
     def body():
         _store(b.state, patchmatch.init_state(b.data, opts, root, b.seed_depth,
-                                              b.seed_normal, b.V, use_geom, mode=mode))
+                                              b.seed_normal, b.V, use_geom, mode=mode,
+                                              switches=switches))
     return body
 
 
-def _sweep_body(b: _Buffers, opts, use_geom, mode, rescore, n_perturb, n_prop,
+def _sweep_body(b: _Buffers, opts, use_geom, switches, mode, rescore, n_perturb, n_prop,
                 active_eps, frac_eps, root):
     """One ``patchmatch.sweep`` of the class's state; with ``frac_eps``, the
     early-exit block's share of valid pixels improved by more than it (as
@@ -154,7 +152,8 @@ def _sweep_body(b: _Buffers, opts, use_geom, mode, rescore, n_perturb, n_prop,
         new = patchmatch.sweep(st, b.data, opts, root, b.V, use_geom,
                                n_perturb=n_perturb, mode=mode,
                                rescore_state=rescore, n_prop=n_prop,
-                               active_eps=active_eps, conf_prev=b.conf_prev)
+                               active_eps=active_eps, conf_prev=b.conf_prev,
+                               switches=switches)
         if frac_eps is not None:
             n_valid = torch.clamp(torch.sum(b.data.valid.to(torch.float32)), min=1.0)
             improved = ((st.conf - new.conf) > frac_eps) & b.data.valid
@@ -210,7 +209,7 @@ class Runner:
         ``make_body(root key)`` builds) over ``b`` with ``key``: on a card,
         capture it on first use, then fill its keys and replay it (and run
         its host effects); on the CPU, fill its keys and run its body."""
-        pkey = (b,) + kind + tuple(os.environ.get(k) for k in _SWITCHES)
+        pkey = (b,) + kind
         prog = self._programs.get(pkey)
         if prog is None:
             prog = self._programs[pkey] = _Program(self.device, make_body)
@@ -331,9 +330,10 @@ class Sweeps:
     buffers with a runner: read it before the class's next view loads)."""
 
     def __init__(self, data: PMData, opts: DenseOptions, n_views: int,
-                 use_geom: bool, runner: Optional[Runner] = None):
+                 use_geom: bool, runner: Optional[Runner] = None,
+                 switches: patchmatch.Switches = patchmatch.Switches()):
         self.data, self.opts, self.n_views, self.use_geom = data, opts, n_views, use_geom
-        self.runner = runner
+        self.runner, self.switches = runner, switches
         self._b = None if runner is None else runner.buffers(data)
         self._state = self._prev = None
 
@@ -342,17 +342,17 @@ class Sweeps:
         return self._state if self._b is None else self._b.state
 
     def _run(self, body_fn, args: tuple, key) -> None:
-        """The program ``body_fn(buffers, opts, use_geom, *args)``."""
-        self.runner.run(self._b, (body_fn, self.opts, self.use_geom) + args,
-                        functools.partial(body_fn, self._b, self.opts, self.use_geom,
-                                          *args), key)
+        """The program ``body_fn(buffers, opts, use_geom, switches, *args)``."""
+        args = (self.opts, self.use_geom, self.switches) + args
+        self.runner.run(self._b, (body_fn,) + args,
+                        functools.partial(body_fn, self._b, *args), key)
 
     def init(self, key, seed_depth, seed_normal, mode: str) -> None:
         """``patchmatch.init_state`` from the seeds (numpy or tensors)."""
         if self._b is None:
             self._state = patchmatch.init_state(self.data, self.opts, key, seed_depth,
-                                                seed_normal, self.n_views,
-                                                self.use_geom, mode=mode)
+                                                seed_normal, self.n_views, self.use_geom,
+                                                mode=mode, switches=self.switches)
             return
         self._b.seed_depth.copy_(torch.as_tensor(seed_depth, dtype=torch.float32))
         self._b.seed_normal.copy_(torch.as_tensor(seed_normal, dtype=torch.float32))
@@ -368,7 +368,8 @@ class Sweeps:
             self._state, n = patchmatch.sweep_block_adaptive(
                 self._state, self.data, self.opts, key, self.n_views, self.use_geom,
                 n_perturb=n_perturb, mode=mode, n_prop=n_prop, first_fold=first_fold,
-                n_sweeps=n_sweeps, min_sweeps=min_sweeps, eps=eps, min_frac=min_frac)
+                n_sweeps=n_sweeps, min_sweeps=min_sweeps, eps=eps, min_frac=min_frac,
+                switches=self.switches)
             count("pm.sweeps", n)
             return n
         args = (mode, False, n_perturb, n_prop, 0.0, eps)
@@ -392,7 +393,8 @@ class Sweeps:
             self._state = patchmatch.sweep(
                 self._state, self.data, self.opts, key, self.n_views, self.use_geom,
                 n_perturb=n_perturb, mode=mode, rescore_state=rescore, n_prop=n_prop,
-                fold=fold, active_eps=active_eps, conf_prev=self._prev)
+                fold=fold, active_eps=active_eps, conf_prev=self._prev,
+                switches=self.switches)
             self._prev = this
             return
         args = (mode, rescore, n_perturb, n_prop, active_eps, None)

@@ -12,10 +12,9 @@ Scoring goes through the kernels of ``ops/pm_kernel.py``, which run their
 plain versions on CPU tensors: one launch of the multi-view scorer per
 candidate stack (K1-mv photometric, K2-mv photometric + geometric), and
 one launch of K3-mv for the geometric terms alone, all views at once.
-Geometric sweeps score with K2-mv by default; the split sweep
-(``OMVS_GEOM_SPLIT``) and the unfused scorer (``OMVS_GEOM_FUSED=0``)
-compute the terms with K3-mv first, score with the scorer's precomputed
-mode, and give the same result.
+Geometric sweeps score with K2-mv by default; the split sweep and the
+unfused scorer (``Switches``) compute the terms with K3-mv first, score
+with the scorer's precomputed mode, and give the same result.
 Everything stays float32, and every 3x3 warp is written
 elementwise: a reduced-precision product there shifts warped coordinates
 by a tenth of a pixel (see the JAX package's note at patchmatch.py:436).
@@ -30,8 +29,8 @@ image once per pixel, and the window statistics are sums over shifts of
 the warped image; its candidates are field-coherent probes
 (``_probe_candidates``) instead of random perturbations.
 
-Convergence skipping (``sweep(active_eps=, conf_prev=)``, densify's
-``OMVS_ACTIVE``) flags bands of 16 image rows in which no pixel of the
+Convergence skipping (``sweep(active_eps=, conf_prev=)``, ``Switches.active``)
+flags bands of 16 image rows in which no pixel of the
 active parity improved by more than ``active_eps`` in the previous sweep;
 the scorer skips their texel work and their pixels keep the incumbent.
 
@@ -42,16 +41,18 @@ Every function of a sweep can be captured in a CUDA graph and replayed
 (``ops/graphs.py``, densify's path on the card): nothing in it reads the
 host, a key may be a ``rng.KeyTable`` key read from a device tensor, and
 the host's bookkeeping of the work (launch and band counts, the
-``OMVS_GEOM_DEBUG`` line) goes through ``pm_kernel.host_effect``, which
-runs it after each replay.
+``geom_debug`` line) goes through ``pm_kernel.host_effect``, which
+runs it after each replay. What a sweep does beyond its arguments is one
+record, ``Switches``, and a level's steps are ``schedule``'s.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +66,118 @@ from openmvs_tpu_torch.utils.fmath import fma
 # progressive shrink factors for random refinement
 # (reference DepthEstimator::scaleRanges, DepthMap.cpp:359)
 SCALE_RANGES = tuple(0.5 ** i for i in range(12))
+
+
+@dataclasses.dataclass(frozen=True)
+class Switches:
+    """PatchMatch's sweep switches, the JAX package's environment variables.
+    ``from_env`` reads them once per call at the entries
+    (``densify.dense_reconstruction`` and ``estimate_depth_map``,
+    ``parallel.sharded.estimate_views_sharded``); all below take the record
+    as an argument, and it keys the device programs (``ops/graphs.py``).
+    The default record is the empty environment's.
+
+    ``all_exact`` (``OMVS_ALL_EXACT`` set): every sweep samples bilinear.
+    ``init_exact`` (``OMVS_INIT_EXACT`` set): the incumbent is scored
+    bilinear. ``early_exit`` (off where ``OMVS_EARLY_EXIT`` is ``0`` or
+    empty): the nn sweeps run as one adaptive block, which stops after
+    sweep k >= ``ee_min`` (``OMVS_EE_MIN``, 2, at least 0) once the share
+    of valid pixels improved by more than ``ee_eps`` (``OMVS_EE_EPS``,
+    5e-3) is below ``ee_frac`` (``OMVS_EE_FRAC``, 0.01). ``active``
+    (``OMVS_ACTIVE``, 0 where not a number): from sweep ``active_from``
+    (``OMVS_ACTIVE_FROM``, 2) on, a sweep skips the 16-row bands in which
+    no pixel improved by more than it in the previous sweep, but not at a
+    mode switch nor the sweep after it (``schedule``). ``geom_split``
+    (``OMVS_GEOM_SPLIT`` set and not ``0``; ``1`` and ``xla`` alike): the
+    split geometric sweep (``sweep``); ``geom_fused`` (off where
+    ``OMVS_GEOM_FUSED`` is ``0`` or ``false``): else K3-mv computes the
+    geometric terms first (``score_hypotheses``); both give the default's
+    maps bit for bit. ``geom_debug`` (``OMVS_GEOM_DEBUG`` set): each K3-mv
+    call prints its comparison with the plain version. ``old_rng``
+    (``OMVS_OLD_RNG`` set): shape-based uniforms (``rng.block_uniform``)."""
+
+    all_exact: bool = False
+    init_exact: bool = False
+    early_exit: bool = True
+    ee_min: int = 2
+    ee_eps: float = 5e-3
+    ee_frac: float = 0.01
+    active: float = 0.0
+    active_from: int = 2
+    geom_split: bool = False
+    geom_fused: bool = True
+    geom_debug: bool = False
+    old_rng: bool = False
+
+    @classmethod
+    def from_env(cls) -> "Switches":
+        env = os.environ.get
+        try:
+            active = float(env("OMVS_ACTIVE", "0") or 0)
+        except ValueError:
+            active = 0.0
+        return cls(all_exact=bool(env("OMVS_ALL_EXACT")),
+                   init_exact=bool(env("OMVS_INIT_EXACT")),
+                   early_exit=env("OMVS_EARLY_EXIT", "1") not in ("0", ""),
+                   ee_min=max(0, int(env("OMVS_EE_MIN", "2"))),
+                   ee_eps=float(env("OMVS_EE_EPS", "5e-3")),
+                   ee_frac=float(env("OMVS_EE_FRAC", "0.01")),
+                   active=active, active_from=int(env("OMVS_ACTIVE_FROM", "2")),
+                   geom_split=env("OMVS_GEOM_SPLIT", "0") not in ("0", ""),
+                   geom_fused=env("OMVS_GEOM_FUSED", "1") not in ("0", "false"),
+                   geom_debug=bool(env("OMVS_GEOM_DEBUG")),
+                   old_rng=bool(env("OMVS_OLD_RNG")))
+
+
+class Block(NamedTuple):  # the adaptive block's limits (``sweep_block_adaptive``)
+    n_sweeps: int
+    min_sweeps: int
+    eps: float
+    min_frac: float
+
+
+class Step(NamedTuple):  # one sweep (``sweep``'s arguments)
+    fold: int
+    mode: str
+    rescore: bool
+    active_eps: float
+
+
+class Schedule(NamedTuple):
+    levels: int                 # sub-resolution levels above full resolution
+    init_mode: str
+    block: Optional[Block]
+    sweeps: Tuple[Step, ...]
+    n_perturb: int
+
+
+def schedule(opts: DenseOptions, switches: Switches, is_geometric: bool) -> Schedule:
+    """A view's pyramid (none in a geometric pass) and each level's steps:
+    the incumbent scored in the first sweep's
+    mode (bilinear under ``init_exact``); nearest-texel search sweeps, as
+    one adaptive block of nn sweeps keyed from fold 1 where ``early_exit``
+    and there are at least 3; then ``exact_final_iters`` bilinear sweeps,
+    the first rescoring the incumbent (all sweeps bilinear under
+    ``all_exact``; a geometric pass is one sweep). The serial path runs it
+    as it is; the sharded path with ``early_exit`` and ``active`` off."""
+    sw = switches
+    n_iters = 1 if is_geometric else opts.estimation_iters
+    n_exact = max(1, opts.exact_final_iters)
+    modes = ["exact" if (sw.all_exact or it >= n_iters - n_exact) else "nn"
+             for it in range(max(n_iters, 1))]
+    n_nn = modes.count("nn")
+    block = (Block(n_nn, sw.ee_min, sw.ee_eps, sw.ee_frac) if sw.early_exit and n_nn >= 3
+             else None)
+    steps, prev, have_prev = [], "nn" if block else None, False
+    for it in range(n_nn if block else 0, n_iters):
+        rescore = prev is not None and modes[it] != prev
+        eps = sw.active if (sw.active and it >= sw.active_from and not rescore
+                            and have_prev) else 0.0
+        steps.append(Step(it + 1, modes[it], rescore, eps))
+        have_prev, prev = not rescore, modes[it]
+    return Schedule(0 if is_geometric else opts.sub_resolution_levels,
+                    "exact" if sw.init_exact else modes[0], block, tuple(steps),
+                    max(1, opts.random_iters // 2))
 
 
 class PMViews(NamedTuple):
@@ -322,7 +435,8 @@ def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
                      use_geom: bool, mode: str = "exact",
                      bonus: torch.Tensor = None,
                      geom_terms: torch.Tensor = None,
-                     band_act: torch.Tensor = None) -> torch.Tensor:
+                     band_act: torch.Tensor = None,
+                     switches: Switches = Switches()) -> torch.Tensor:
     """Aggregated multi-view scores (C, H, W) of C (depth, normal) maps.
 
     mode: "exact" = per-texel bilinear plane-induced warp (reference
@@ -336,8 +450,8 @@ def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
 
     With ``use_geom`` the geometric term of view j is ``geom_terms[j]``
     when a precomputed (V, C, H, W) stack is given (the split sweep), else
-    the scorer computes it (K2-mv), or K3-mv computes the stack first under
-    ``OMVS_GEOM_FUSED=0`` or in mode "warp"; all give the same term.
+    the scorer computes it (K2-mv), or K3-mv computes the stack first where
+    ``switches.geom_fused`` is off or in mode "warp"; all give the same term.
     ``band_act`` (bands of ``pm_kernel.BAND_ROWS`` rows) skips the scoring of
     flagged-off bands ("exact" and "nn" only)."""
     if mode not in ("exact", "nn", "warp"):
@@ -352,7 +466,7 @@ def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
         if band_act is not None:
             raise ValueError("band skipping applies to modes exact and nn")
         if use_geom and geom_terms is None:
-            geom_terms = _geom_all_views(data, n_views, depth)
+            geom_terms = _geom_all_views(data, n_views, depth, switches)
 
         def per_view(j):
             s = _score_one_view_warp(data, opts, depth, normal, inv_nd,
@@ -365,8 +479,8 @@ def score_hypotheses(data: PMData, opts: DenseOptions, state: PMState,
             geom_weight=float(opts.estimation_geometric_weight))
     geom = {}
     if use_geom:
-        if geom_terms is None and os.environ.get("OMVS_GEOM_FUSED", "1") in ("0", "false"):
-            geom_terms = _geom_all_views(data, n_views, depth)
+        if geom_terms is None and not switches.geom_fused:
+            geom_terms = _geom_all_views(data, n_views, depth, switches)
         if geom_terms is None:
             geom = dict(Tr=v.Tr[:n], Tn=v.Tn[:n], dms=v.depth[:n], uv=data.uv)
         else:
@@ -400,13 +514,6 @@ def score_prelude(data: PMData, opts: DenseOptions, state: PMState,
     return inv_nd, bonus, f_blend, delta
 
 
-def score_hypothesis(data, opts, state, depth, normal, n_views, use_geom,
-                     mode="exact") -> torch.Tensor:
-    """Single-hypothesis convenience wrapper: (H, W) in, (H, W) out."""
-    return score_hypotheses(data, opts, state, depth[None], normal[None],
-                            n_views, use_geom, mode)[0]
-
-
 # ------------------------------------------------------------- candidates
 
 
@@ -422,22 +529,19 @@ def _dir_to_normal(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
                         fmath.cos(phi)], dim=-1)
 
 
-_block_uniform = rng.block_uniform
-
-
-def _random_normal(key, uv, view_dir):
+def _random_normal(key, uv, view_dir, old_rng: bool = False):
     """Random camera-facing normal (DepthMap.h:439-444)."""
     k1, k2 = rng.split(key)
-    theta = _block_uniform(k1, uv, minval=0.0, maxval=math.pi)
-    phi = _block_uniform(k2, uv, minval=math.pi / 2, maxval=math.pi)
+    theta = rng.block_uniform(k1, uv, 0.0, math.pi, old_rng)
+    phi = rng.block_uniform(k2, uv, math.pi / 2, math.pi, old_rng)
     n = _dir_to_normal(theta, phi)
     flip = _dot3(n, view_dir) > 0
     return torch.where(flip[..., None], -n, n)
 
 
-def _random_depth(key, uv, d_min, d_max):
+def _random_depth(key, uv, d_min, d_max, old_rng: bool = False):
     """sqrt-space uniform random depth (DepthMap.h:435-438)."""
-    u = _block_uniform(key, uv)
+    u = rng.block_uniform(key, uv, old_rng=old_rng)
     r = fma(u, torch.sqrt(d_max) - torch.sqrt(d_min), torch.sqrt(d_min))
     return r * r
 
@@ -462,9 +566,10 @@ def _propagate_candidate(data: PMData, state: PMState, opts: DenseOptions,
 
 
 def _perturb_candidate(data: PMData, state: PMState, opts: DenseOptions, key,
-                       extra_scale: float):
+                       extra_scale: float, old_rng: bool = False):
     """Random refinement around the current estimate (DepthMap.cpp:800-852);
     the search range shrinks with the current confidence."""
+    uniform = functools.partial(rng.block_uniform, uv=data.uv, old_rng=old_rng)
     conf = state.conf
     idx_scale = torch.where(
         conf <= opts.th_conf_small, opts.random_max_scale,
@@ -474,18 +579,17 @@ def _perturb_candidate(data: PMData, state: PMState, opts: DenseOptions, key,
     scale = torch.pow(0.5, idx_scale.double()).float() * extra_scale
     k1, k2, k3, k4, k5 = rng.split(key, 5)
     depth_range = state.depth * opts.random_depth_ratio
-    d_new = fma((_block_uniform(k1, data.uv) * 2 - 1) * depth_range, scale,
-                state.depth)
+    d_new = fma((uniform(k1) * 2 - 1) * depth_range, scale, state.depth)
     theta, phi = _normal_to_dir(state.normal)
     a1 = math.radians(opts.random_angle1_range)
     a2 = math.radians(opts.random_angle2_range)
-    theta = fma((_block_uniform(k2, data.uv) * 2 - 1) * a1, scale, theta)
-    phi = fma((_block_uniform(k3, data.uv) * 2 - 1) * a2, scale, phi)
+    theta = fma((uniform(k2) * 2 - 1) * a1, scale, theta)
+    phi = fma((uniform(k3) * 2 - 1) * a2, scale, phi)
     n_new = _dir_to_normal(theta, phi)
 
     # fully random restart where the current estimate is hopeless
-    rand_d = _random_depth(k4, data.uv, data.d_min, data.d_max)
-    rand_n = _random_normal(k5, data.uv, data.X0)
+    rand_d = _random_depth(k4, data.uv, data.d_min, data.d_max, old_rng)
+    rand_n = _random_normal(k5, data.uv, data.X0, old_rng)
     hopeless = conf >= opts.th_conf_rand
     d_new = torch.where(hopeless, rand_d, d_new)
     n_new = torch.where(hopeless[..., None], rand_n, n_new)
@@ -494,13 +598,15 @@ def _perturb_candidate(data: PMData, state: PMState, opts: DenseOptions, key,
     return d_new, n_new, ok
 
 
-def _probe_candidates(data: PMData, state: PMState, opts: DenseOptions, key):
+def _probe_candidates(data: PMData, state: PMState, opts: DenseOptions, key,
+                      old_rng: bool = False):
     """Field-coherent refinement probes for the warp-once scorer
     (``openmvs_tpu/ops/patchmatch.py:798-832``): the warp scorer reads the
     hypothesis field over each window, so per-pixel random perturbations
     average out. Instead: depth-scale ladders around the current field, two
     normals rotated by block-random offsets, and one block-random restart
     where the estimate is hopeless."""
+    uniform = functools.partial(rng.block_uniform, uv=data.uv, old_rng=old_rng)
     out = []
     r = opts.random_depth_ratio
     for delta in (4 * r, -4 * r, r, -r, 0.25 * r, -0.25 * r):
@@ -513,15 +619,15 @@ def _probe_candidates(data: PMData, state: PMState, opts: DenseOptions, key):
     a2 = math.radians(opts.random_angle2_range)
     for kk in (k1, k2):
         ka, kb = rng.split(kk)
-        t2 = fma(_block_uniform(ka, data.uv) * 2 - 1, a1, theta)
-        p2 = fma(_block_uniform(kb, data.uv) * 2 - 1, a2, phi)
+        t2 = fma(uniform(ka) * 2 - 1, a1, theta)
+        p2 = fma(uniform(kb) * 2 - 1, a2, phi)
         n_new = _dir_to_normal(t2, p2)
         ok = (state.depth > 0) & (_dot3(n_new, data.X0) < 0)
         out.append((state.depth, n_new, ok))
-    rand_d = _random_depth(k3, data.uv, data.d_min, data.d_max)
-    rand_n = _random_normal(k4, data.uv, data.X0)
+    rand_d = _random_depth(k3, data.uv, data.d_min, data.d_max, old_rng)
+    rand_n = _random_normal(k4, data.uv, data.X0, old_rng)
     hopeless = state.conf >= opts.th_conf_rand
-    jitter = fma((_block_uniform(k3, data.uv) * 2 - 1) * 16, r, 1.0)
+    jitter = fma((uniform(k3) * 2 - 1) * 16, r, 1.0)
     d_new = torch.where(hopeless, rand_d, state.depth * jitter)
     n_new = torch.where(hopeless[..., None], rand_n, state.normal)
     ok = (d_new >= data.d_min) & (d_new <= data.d_max)
@@ -540,15 +646,15 @@ def _prop_cand_list(data, state, opts, n_prop):
             for dy, dx in PROP_OFFSETS[:n_prop]]
 
 
-def _perturb_cand_list(data, state, opts, key, parity, n_perturb, mode="nn"):
+def _perturb_cand_list(data, state, opts, key, parity, n_perturb, mode="nn",
+                      old_rng: bool = False):
     """Perturb candidates with the fold_in(parity*131 + r) key schedule; in
     mode "warp" the probes of ``_probe_candidates`` with fold_in(parity*131)."""
     if mode == "warp":
-        return _probe_candidates(data, state, opts,
-                                 rng.fold_in(key, parity * 131))
-    return [_perturb_candidate(data, state, opts,
-                               rng.fold_in(key, parity * 131 + r),
-                               SCALE_RANGES[r])
+        return _probe_candidates(data, state, opts, rng.fold_in(key, parity * 131),
+                                 old_rng)
+    return [_perturb_candidate(data, state, opts, rng.fold_in(key, parity * 131 + r),
+                               SCALE_RANGES[r], old_rng)
             for r in range(n_perturb)]
 
 
@@ -560,12 +666,13 @@ def _stack_cands(cand):
 
 
 def _build_candidates(state, data, opts, key, parity, n_perturb, n_prop,
-                      mode="nn"):
+                      mode="nn", switches: Switches = Switches()):
     """(cd, cn, cok) for one parity half-step: the one construction both
     the fused and the split sweep use, so they see the same candidates."""
     return _stack_cands(
         _prop_cand_list(data, state, opts, n_prop)
-        + _perturb_cand_list(data, state, opts, key, parity, n_perturb, mode))
+        + _perturb_cand_list(data, state, opts, key, parity, n_perturb, mode,
+                             switches.old_rng))
 
 
 def _parity_map(data: PMData) -> torch.Tensor:
@@ -580,14 +687,15 @@ def _active(data: PMData, parity: int) -> torch.Tensor:
 
 
 def _sweep_parity(state, data, opts, key, n_views, use_geom, n_perturb, mode,
-                  parity, n_prop, active_eps=0.0, conf_prev=None):
+                  parity, n_prop, active_eps=0.0, conf_prev=None,
+                  switches: Switches = Switches()):
     cd, cn, cok = _build_candidates(state, data, opts, key, parity, n_perturb,
-                                    n_prop, mode)
+                                    n_prop, mode, switches)
     band_act = None
     if active_eps and conf_prev is not None:
         band_act = _band_flags(state, data, conf_prev, parity, mode, active_eps)
     return _score_select(state, data, opts, cd, cn, cok, _active(data, parity),
-                         n_views, use_geom, mode, band_act=band_act)
+                         n_views, use_geom, mode, band_act=band_act, switches=switches)
 
 
 # band half-sweeps scored and skipped by convergence skipping, over the
@@ -631,12 +739,12 @@ def _count_bands(scored: int, skipped) -> None:
 
 
 def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
-                  mode, geom_terms=None, band_act=None):
+                  mode, geom_terms=None, band_act=None, switches: Switches = Switches()):
     """Score a candidate stack and take per-parity winners vs the incumbent
     (every pixel is scored; the active parity decides who may update).
     Pixels of bands that ``band_act`` skips never update."""
     s = score_hypotheses(data, opts, state, cd, cn, n_views, use_geom, mode,
-                         geom_terms=geom_terms, band_act=band_act)
+                         geom_terms=geom_terms, band_act=band_act, switches=switches)
     s = torch.where(cok, s, math.inf)
     best = torch.argmin(s, dim=0)[None]            # first index on ties
     s_best = torch.gather(s, 0, best)[0]
@@ -657,11 +765,11 @@ def _score_select(state, data, opts, cd, cn, cok, active, n_views, use_geom,
 
 
 def _rescored(state: PMState, data: PMData, opts, n_views, use_geom, mode,
-              geom_terms=None):
+              geom_terms=None, switches: Switches = Switches()):
     """The incumbent state with its confidence rescored in ``mode``."""
     cur = score_hypotheses(data, opts, state, state.depth[None],
                            state.normal[None], n_views, use_geom, mode,
-                           geom_terms=geom_terms)[0]
+                           geom_terms=geom_terms, switches=switches)[0]
     return PMState(depth=state.depth, normal=state.normal,
                    conf=torch.where(data.valid, cur, 2.0))
 
@@ -669,10 +777,11 @@ def _rescored(state: PMState, data: PMData, opts, n_views, use_geom, mode,
 # ------------------------------------------------------------- split sweep
 
 
-def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor) -> torch.Tensor:
+def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor,
+                    switches: Switches = Switches()) -> torch.Tensor:
     """(V, C, H, W) geometric terms of candidate depths ``depth_c`` against
     the first ``n_views`` neighbours, from one launch of K3-mv (the plain
-    version on CPU tensors). ``OMVS_GEOM_DEBUG`` prints each call's
+    version on CPU tensors). ``switches.geom_debug`` prints each call's
     comparison with the plain version (after the device work, at each
     replay where the call is captured)."""
     v = data.views
@@ -680,7 +789,7 @@ def _geom_all_views(data: PMData, n_views: int, depth_c: torch.Tensor) -> torch.
     out = pm_kernel.geom_terms(
         *(t[:n_views] for t in (v.depth, v.size, v.Tl, v.Tm, v.Tr, v.Tn)),
         depth_c, data.X0, data.uv)
-    if os.environ.get("OMVS_GEOM_DEBUG"):
+    if switches.geom_debug:
         ref = torch.stack([
             _geometric_term(data, None, depth_c, v.depth[j], v.size[j], v.Tl[j],
                             v.Tm[j], v.Tr[j], v.Tn[j], force_xla=True)
@@ -697,39 +806,28 @@ def _print_geom_debug(C, V, n, n_bad, mean, d_max) -> None:
           f"mean|d|={float(mean):.4f} max|d|={float(d_max):.3f}", flush=True)
 
 
-def _select_candidates(state, data, opts, cd, cn, cok, geom, parity, n_views,
-                       mode):
-    """Score candidates (geometric terms precomputed) and take per-parity
-    winners."""
-    return _score_select(state, data, opts, cd, cn, cok, _active(data, parity),
-                         n_views, True, mode, geom_terms=geom)
-
-
-def _rescore_with_geom(state, data, opts, n_views, mode, geom):
-    return _rescored(state, data, opts, n_views, True, mode, geom_terms=geom)
-
-
 def _sweep_geom_split(state, data, opts, key, n_views, n_perturb, mode,
-                      rescore_state, n_prop):
+                      rescore_state, n_prop, switches: Switches):
     """A geometric sweep in three steps per half-step: candidates, their
     geometric terms against every view (K3-mv), then scoring with the terms
     precomputed and selection."""
     if rescore_state:
-        g = _geom_all_views(data, n_views, state.depth[None])
-        state = _rescore_with_geom(state, data, opts, n_views, mode, g)
+        g = _geom_all_views(data, n_views, state.depth[None], switches)
+        state = _rescored(state, data, opts, n_views, True, mode, g, switches)
     for parity in (0, 1):
         cd, cn, cok = _build_candidates(state, data, opts, key, parity,
-                                        n_perturb, n_prop, mode)
-        g = _geom_all_views(data, n_views, cd)
-        state = _select_candidates(state, data, opts, cd, cn, cok, g, parity,
-                                   n_views, mode)
+                                        n_perturb, n_prop, mode, switches)
+        g = _geom_all_views(data, n_views, cd, switches)
+        state = _score_select(state, data, opts, cd, cn, cok, _active(data, parity),
+                              n_views, True, mode, geom_terms=g, switches=switches)
     return state
 
 
 def sweep(state: PMState, data: PMData, opts: DenseOptions, key, n_views: int,
           use_geom: bool = False, n_perturb: int = 3, mode: str = "nn",
           rescore_state: bool = False, n_prop: int = len(PROP_OFFSETS),
-          fold: int = 0, active_eps: float = 0.0, conf_prev=None) -> PMState:
+          fold: int = 0, active_eps: float = 0.0, conf_prev=None,
+          switches: Switches = Switches()) -> PMState:
     """One full PatchMatch iteration = two checkerboard half-steps.
 
     fold != 0 derives this iteration's key as fold_in(key, fold);
@@ -739,35 +837,29 @@ def sweep(state: PMState, data: PMData, opts: DenseOptions, key, n_views: int,
     bands that did not improve by more than ``active_eps`` in it
     (``_band_flags``); the split geometric sweep skips nothing.
 
-    ``OMVS_GEOM_SPLIT`` (read at call time) set to ``1`` or ``xla`` runs a
-    geometric sweep split in three steps per half-step (candidates, then
-    the geometric terms of all views, then scoring and selection; the JAX
-    package's ``_sweep_geom_split``). In the JAX package ``1`` takes the
-    Pallas geometric kernel and ``xla`` its XLA term; the port has one
-    term, so both launch K3-mv on the card and both run its plain version on
-    CPU tensors. The result equals the default sweep's."""
+    ``switches.geom_split`` splits a geometric sweep in three steps per
+    half-step (the JAX package's ``_sweep_geom_split``; ``Switches``)."""
     if fold:
         key = rng.fold_in(key, fold)
-    split = os.environ.get("OMVS_GEOM_SPLIT")
-    if use_geom and split and split != "0":
+    if use_geom and switches.geom_split:
         return _sweep_geom_split(state, data, opts, key, n_views, n_perturb,
-                                 mode, rescore_state, n_prop)
+                                 mode, rescore_state, n_prop, switches)
     if rescore_state:
-        state = _rescored(state, data, opts, n_views, use_geom, mode)
+        state = _rescored(state, data, opts, n_views, use_geom, mode, switches=switches)
     for parity in (0, 1):
         state = _sweep_parity(state, data, opts, key, n_views, use_geom,
                               n_perturb, mode, parity, n_prop, active_eps,
-                              conf_prev)
+                              conf_prev, switches)
     return state
 
 
 def sweep_half(state: PMState, data: PMData, opts: DenseOptions, key,
                n_views: int, use_geom: bool = False, n_perturb: int = 3,
                mode: str = "nn", parity: int = 0,
-               n_prop: int = len(PROP_OFFSETS)) -> PMState:
+               n_prop: int = len(PROP_OFFSETS), switches: Switches = Switches()) -> PMState:
     """One checkerboard half-step (one parity)."""
     return _sweep_parity(state, data, opts, key, n_views, use_geom, n_perturb,
-                         mode, parity, n_prop)
+                         mode, parity, n_prop, switches=switches)
 
 
 def sweep_block_adaptive(state: PMState, data: PMData, opts: DenseOptions, key,
@@ -775,7 +867,8 @@ def sweep_block_adaptive(state: PMState, data: PMData, opts: DenseOptions, key,
                          n_perturb: int = 3, mode: str = "nn",
                          n_prop: int = len(PROP_OFFSETS), first_fold: int = 1,
                          n_sweeps: int = 3, min_sweeps: int = 2,
-                         eps: float = 5e-3, min_frac: float = 0.01):
+                         eps: float = 5e-3, min_frac: float = 0.01,
+                         switches: Switches = Switches()):
     """Up to n_sweeps identical search sweeps with convergence-based early
     exit: after sweep k >= min_sweeps the block stops when the share of
     valid pixels whose score improved by more than ``eps`` in sweep k falls
@@ -790,7 +883,7 @@ def sweep_block_adaptive(state: PMState, data: PMData, opts: DenseOptions, key,
         old_conf = state.conf
         for parity in (0, 1):
             state = _sweep_parity(state, data, opts, k, n_views, use_geom,
-                                  n_perturb, mode, parity, n_prop)
+                                  n_perturb, mode, parity, n_prop, switches=switches)
         improved = ((old_conf - state.conf) > eps) & data.valid
         frac = torch.sum(improved.to(torch.float32)) / n_valid
         it += 1
@@ -801,8 +894,8 @@ def sweep_block_adaptive(state: PMState, data: PMData, opts: DenseOptions, key,
 
 
 def init_state(data: PMData, opts: DenseOptions, key, seed_depth, seed_normal,
-               n_views: int, use_geom: bool = False, mode: str = "exact"
-               ) -> PMState:
+               n_views: int, use_geom: bool = False, mode: str = "exact",
+               switches: Switches = Switches()) -> PMState:
     """Initialize state from seeds; random where seeds are missing
     (ScoreDepthMapTmp, SceneDensify.cpp:490-517). The incumbent is scored
     in the first sweep's sampling mode."""
@@ -810,8 +903,8 @@ def init_state(data: PMData, opts: DenseOptions, key, seed_depth, seed_normal,
     seed_depth = torch.as_tensor(seed_depth, dtype=torch.float32, device=dev)
     seed_normal = torch.as_tensor(seed_normal, dtype=torch.float32, device=dev)
     k1, k2 = rng.split(key, 2)
-    rand_d = _random_depth(k1, data.uv, data.d_min, data.d_max)
-    rand_n = _random_normal(k2, data.uv, data.X0)
+    rand_d = _random_depth(k1, data.uv, data.d_min, data.d_max, switches.old_rng)
+    rand_n = _random_normal(k2, data.uv, data.X0, switches.old_rng)
     has_seed = (seed_depth >= data.d_min) & (seed_depth <= data.d_max)
     depth = torch.where(has_seed, seed_depth, rand_d)
     nrm = _norm3(seed_normal)
@@ -821,8 +914,8 @@ def init_state(data: PMData, opts: DenseOptions, key, seed_depth, seed_normal,
     normal = normal / torch.clamp(_norm3(normal)[..., None], min=1e-12)
     state0 = PMState(depth=depth, normal=normal,
                      conf=torch.full(depth.shape, 2.0, device=dev))
-    conf = score_hypothesis(data, opts, state0, depth, normal, n_views,
-                            use_geom, mode)
+    conf = score_hypotheses(data, opts, state0, depth[None], normal[None], n_views,
+                            use_geom, mode, switches=switches)[0]
     conf = torch.where(data.valid, conf, 2.0)
     depth = torch.where(data.valid, depth, 0.0)
     return PMState(depth=depth, normal=normal, conf=conf)

@@ -13,9 +13,10 @@ out on a (views, tile) ``ShardMesh`` (``parallel/mesh.py``):
 Candidate randomness is position-anchored (``utils/rng.block_uniform``
 hashes the global pixel coordinates of ``data.uv``) and the checkerboard
 parity comes from ``uv`` too, so a sharded result equals the serial one
-(``OMVS_OLD_RNG`` draws by shape, and then they differ, as in the JAX
-package). Each shard's block reaches the scorer kernels K1-mv and K2-mv
-through ``patchmatch._sweep_parity``.
+(``Switches.old_rng`` draws by shape, and then they differ, as in the JAX
+package). Views are set up and scheduled as on the serial path
+(``densify.setup_view``, ``patchmatch.schedule``). Each shard's block
+reaches the scorer kernels K1-mv and K2-mv through ``patchmatch._sweep_parity``.
 
 One process drives every shard; the collectives are the explicit tensor
 operations of ``parallel/mesh.py``. A padded reference slot of the views
@@ -25,7 +26,7 @@ where SPMD runs it on zeros and discards it.
 
 from __future__ import annotations
 
-import os
+import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -163,163 +164,111 @@ def _gather_rows(xs: List[torch.Tensor], device) -> torch.Tensor:
 # ---------------------------------------------------------- level step
 
 
-def make_level_step(opts: DenseOptions, n_views: int, schedule, use_geom: bool,
-                    init_mode: Optional[str] = None):
-    """The (views, tile)-sharded estimation of one pyramid level.
-
-    schedule: tuple of (mode, n_prop) per sweep iteration, the serial
-    ``estimate_depth_map`` schedule with every search sweep run (no
-    adaptive early exit, as in the JAX package's sharded step). init_mode
-    overrides the incumbent's scoring mode (``OMVS_INIT_EXACT``); it
-    defaults to schedule[0][0].
+def make_level_step(opts: DenseOptions, n_views: int, plan: patchmatch.Schedule,
+                    use_geom: bool, switches: patchmatch.Switches):
+    """The (views, tile)-sharded estimation of one pyramid level: the steps
+    of ``plan``, which has no adaptive block and skips no band.
 
     Returns step(datas, sds, sns, keys): for each view its tiles' core
     PMData blocks, seed depth and normal blocks (each on its tile's
     device) and its key, to each view's tiles' core PMState blocks. Every
     view advances one half-step at a time, then its halos are exchanged,
     so shards on several cards overlap."""
-    n_perturb = max(1, opts.random_iters // 2)
-    first_mode = init_mode or schedule[0][0]
-
     def step(datas, sds, sns, keys):
         exts = [_extend_pm_data(ds) for ds in datas]
         sts = []
         for ds, sd, sn, key in zip(exts, sds, sns, keys):
             sd_e, sn_e = _extend_rows(sd), _extend_rows(sn)
-            # the incumbent is scored in the first sweep's sampling mode, as
-            # the serial path does
             sts.append(halo_exchange([
-                patchmatch.init_state(d, opts, key, a, b, n_views, use_geom, mode=first_mode)
+                patchmatch.init_state(d, opts, key, a, b, n_views, use_geom,
+                                      mode=plan.init_mode, switches=switches)
                 for d, a, b in zip(ds, sd_e, sn_e)]))
-        prev_mode = None
-        for it, (mode, n_prop) in enumerate(schedule):
-            iks = [rng.fold_in(key, it + 1) for key in keys]
-            if prev_mode is not None and mode != prev_mode:
-                sts = [[patchmatch._rescored(st, d, opts, n_views, use_geom, mode)
+        for sweep in plan.sweeps:
+            iks = [rng.fold_in(key, sweep.fold) for key in keys]
+            if sweep.rescore:
+                sts = [[patchmatch._rescored(st, d, opts, n_views, use_geom, sweep.mode,
+                                             switches=switches)
                         for st, d in zip(vst, ds)] for vst, ds in zip(sts, exts)]
             for parity in (0, 1):
                 sts = [halo_exchange([
                     patchmatch._sweep_parity(st, d, opts, ik, n_views, use_geom,
-                                             n_perturb, mode, parity, n_prop)
+                                             plan.n_perturb, sweep.mode, parity, 8,
+                                             switches=switches)
                     for st, d in zip(vst, ds)]) for vst, ds, ik in zip(sts, exts, iks)]
-            prev_mode = mode
         return [[patchmatch.PMState(*(_core(x) for x in st)) for st in vst] for vst in sts]
 
     return step
 
 
-def _schedule(n_iters: int, opts: DenseOptions):
-    """The serial path's sweep modes: exact for the last exact_final_iters
-    sweeps (all of them under ``OMVS_ALL_EXACT``), nn before, 8 offsets."""
-    all_exact = bool(os.environ.get("OMVS_ALL_EXACT"))
-    n_exact = max(1, opts.exact_final_iters)
-    return tuple(("exact" if (it >= n_iters - n_exact or all_exact) else "nn", 8)
-                 for it in range(n_iters))
-
-
 def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
                            prev_results=None, geometric_iter: int = -1,
-                           rng_seed: int = 0, skip_ids=()) -> Dict[int, object]:
+                           rng_seed: int = 0, skip_ids=(),
+                           switches: Optional[patchmatch.Switches] = None
+                           ) -> Dict[int, object]:
     """Sharded equivalent of densify.estimate_depth_map over ALL views.
 
     Returns {image_id: DepthMapResult}, equal to the serial path's results
-    run without the adaptive early exit (``OMVS_EARLY_EXIT=0``)."""
+    run without the adaptive early exit. ``switches`` are read from the
+    environment where not given."""
     from openmvs_tpu_torch import densify as D
     from openmvs_tpu_torch.io import images as imio
-    from openmvs_tpu_torch.ops import seed as seedmod
 
+    switches = switches or patchmatch.Switches.from_env()
     n_views_axis, n_tile = mesh.shape
     is_geometric = geometric_iter >= 0
-    levels = 0 if is_geometric else opts.sub_resolution_levels
-    n_iters = 1 if is_geometric else opts.estimation_iters
-    id_to_idx = {im.meta.id: i for i, im in enumerate(scene.images)}
 
-    # ---- host prep per view (identical to the serial path) ----
-    views_info = []
+    # ---- host prep per view, the serial path's (a geometric pass only
+    # re-estimates the views of ``prev_results``) ----
+    views_info = []     # (ref_idx, densify.ViewSetup)
     for ref_idx in range(scene.n_views):
-        img = scene.images[ref_idx]
-        if img.meta.id in skip_ids:
+        rid = scene.images[ref_idx].meta.id
+        prev = (prev_results or {}).get(rid) if is_geometric else None
+        if rid in skip_ids or (is_geometric and prev is None):
             continue
-        neighbors = img.meta.view_scores
-        if not neighbors:
-            continue
-        if is_geometric and (prev_results is None or img.meta.id not in prev_results):
-            continue
-        num = opts.num_views if opts.num_views > 0 else len(neighbors)
-        # filter-then-slice as the serial path: absent scored neighbours
-        # backfill with later present ones; none present skips the view
-        nbr_ids = [vs.id for vs in neighbors if vs.id in id_to_idx][:num]
-        if not nbr_ids:
-            continue
-        nbr_imgs = [scene.images[id_to_idx[i]] for i in nbr_ids]
-        pts_sel, trusted = [], []
-        for i, v in enumerate(scene.pointcloud.views):
-            if img.meta.id in v:
-                pts_sel.append(scene.pointcloud.points[i])
-                trusted.append(len(v) >= opts.min_views_trust_point)
-        pts_sel = np.asarray(pts_sel, np.float64).reshape(-1, 3)
-        trusted = np.asarray(trusted, bool)
-        cam = img.working_camera()
-        H, W = img.gray.shape
-        sd, sn, d_min, d_max = seedmod.seed_depth_normal(
-            cam, W, H, pts_sel, trusted,
-            interpolate=not opts.init_sparse, add_corners=opts.add_corners)
-        if prev_results is not None and is_geometric:
-            pr = prev_results[img.meta.id]
-            d_min, d_max = pr.d_min, pr.d_max
-            sd, sn = pr.depth, pr.normal
-        if d_max <= d_min:
-            continue
-        views_info.append(dict(ref_idx=ref_idx, img=img, nbr_ids=nbr_ids,
-                               nbr_imgs=nbr_imgs, cam=cam, sd=sd, sn=sn,
-                               d_min=d_min, d_max=d_max))
+        view = D.setup_view(scene, ref_idx, opts, prev, is_geometric)
+        if view is not None:
+            views_info.append((ref_idx, view))
     if not views_info:
         return {}
 
-    V = max(len(vi["nbr_imgs"]) for vi in views_info)
+    V = max(len(view.nbr_ids) for _, view in views_info)
     Vv = len(views_info)
     Vloc = -(-Vv // n_views_axis)
     rows = [mesh.devices[k // Vloc] for k in range(Vv)]   # each view's tiles
-    schedule = _schedule(n_iters, opts)
-    step = make_level_step(opts, V, schedule, is_geometric,
-                           init_mode="exact" if os.environ.get("OMVS_INIT_EXACT") else None)
+    # the serial path's schedule with every search sweep run and no band
+    # skipped, as the JAX package's sharded step runs it
+    plan = patchmatch.schedule(
+        opts, dataclasses.replace(switches, early_exit=False, active=0.0), is_geometric)
+    step = make_level_step(opts, V, plan, is_geometric, switches)
 
     full_states = None       # per view: full-canvas (depth, normal) of a level
     prev_shapes = None       # per view: the previous level's logical shape
     datas_full = None
-    for level in range(levels, -1, -1):
+    for level in range(plan.levels, -1, -1):
         s = 1.0 / (2 ** level)
-        lvl_grays = [D._resize_gray(vi["img"].gray, s) for vi in views_info]
-        h_log = max(g.shape[0] for g in lvl_grays)
-        w_log = max(g.shape[1] for g in lvl_grays)
+        lvls = [view.level(s, prev_results if is_geometric else None)
+                for _, view in views_info]
+        h_log = max(lv[0].shape[0] for lv in lvls)
+        w_log = max(lv[0].shape[1] for lv in lvls)
         # pad rows so the tile axis divides them into 8-aligned cores of at
         # least the HALO rows an exchange slices
         Hl_ = -(-h_log // (n_tile * 8)) * (n_tile * 8)
         Hl_ = max(Hl_, n_tile * HALO)
         Wl_ = -(-w_log // 2) * 2
-        lvl_nbrs = [[D._resize_gray(n.gray, s) for n in vi["nbr_imgs"]] for vi in views_info]
-        Hp = max(g.shape[0] for gs in lvl_nbrs for g in gs)
-        Wp = max(g.shape[1] for gs in lvl_nbrs for g in gs)
+        Hp = max(g.shape[0] for lv in lvls for g in lv[2])
+        Wp = max(g.shape[1] for lv in lvls for g in lv[2])
 
         datas_full, datas, sds, sns, keys = [], [], [], [], []
-        for k, vi in enumerate(views_info):
+        for k, (ref_idx, view) in enumerate(views_info):
             dev0 = rows[k][0]
-            h, w = lvl_grays[k].shape
-            ref_gray = np.pad(lvl_grays[k], ((0, Hl_ - h), (0, Wl_ - w)))
-            ref_cam = (vi["cam"].scaled(w / vi["img"].gray.shape[1])
-                       if s != 1.0 else vi["cam"])
-            nbr_cams = [n.working_camera().scaled(g.shape[1] / n.gray.shape[1])
-                        if s != 1.0 else n.working_camera()
-                        for n, g in zip(vi["nbr_imgs"], lvl_nbrs[k])]
-            nbr_depths = None
-            if is_geometric and prev_results is not None:
-                nbr_depths = [prev_results[i].depth if i in prev_results
-                              else np.zeros((8, 8), np.float32) for i in vi["nbr_ids"]]
+            gray, ref_cam, nbr_grays, nbr_cams, nbr_depths = lvls[k]
+            h, w = gray.shape
+            ref_gray = np.pad(gray, ((0, Hl_ - h), (0, Wl_ - w)))
             # usable: the serial mask resized at the logical size, False in
             # the bottom/right padding, and clamped to the serial window-inside
             # region (the padded canvas would shift that test)
             um = np.zeros((Hl_, Wl_), bool)
-            um_src = vi["img"].usable_mask(opts.ignore_mask_label)
+            um_src = view.image.usable_mask(opts.ignore_mask_label)
             b_ = opts.window_half
             if um_src is not None:
                 if um_src.shape != (h, w):
@@ -329,25 +278,9 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
                 um[:h, :w] = True
             um[max(h - b_, 0):, :] = False
             um[:, max(w - b_, 0):] = False
-            host = D._assemble_pm_host(ref_gray, ref_cam, lvl_nbrs[k], nbr_cams, opts,
-                                       vi["d_min"], vi["d_max"], nbr_depths, usable=um,
-                                       pad_views=V, pad_hw=(Hp, Wp))
             if full_states is None:
                 # level seeds from the sparse cloud (or the previous pass)
-                sdf, snf = vi["sd"], vi["sn"]
-                sd = np.zeros((Hl_, Wl_), np.float32)
-                sn = np.zeros((Hl_, Wl_, 3), np.float32)
-                if s != 1.0:
-                    ys, xs = np.nonzero(sdf > 0)
-                    yy = np.clip((ys * s).astype(int), 0, Hl_ - 1)
-                    xx = np.clip((xs * s).astype(int), 0, Wl_ - 1)
-                    sd[yy, xx] = sdf[ys, xs]
-                    sn[yy, xx] = snf[ys, xs]
-                else:
-                    sd[:sdf.shape[0], :sdf.shape[1]] = sdf
-                    sn[:snf.shape[0], :snf.shape[1]] = snf
-                sd = torch.from_numpy(sd).to(dev0)
-                sn = torch.from_numpy(sn).to(dev0)
+                sd, sn = (torch.from_numpy(a).to(dev0) for a in view.seeds(s, (Hl_, Wl_)))
                 lowres = np.zeros((Hl_, Wl_), np.float32)
             else:
                 # the previous level's state upsampled over each view's own
@@ -359,38 +292,36 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
                 sd[:h, :w] = D._resize_linear(dep[:ph, :pw], h, w)
                 sn[:h, :w] = D._resize_nearest(nrm[:ph, :pw], h, w)
                 lowres = sd
-            data = patchmatch.pack_pm_data(
-                opts, host["ref_gray"], host["images"], host["sizes"], host["Hl"],
-                host["Hm"], host["depths"], host["Tl"], host["Tm"], host["Tr"],
-                host["Tn"], host["KinvT"], host["goff"], host["d_min"],
-                host["d_max"], lowres, host["usable"], device=dev0)
+            data = D._build_pm_data(ref_gray, ref_cam, nbr_grays, nbr_cams, opts,
+                                    view.d_min, view.d_max, lowres, nbr_depths, usable=um,
+                                    device=dev0, pad_views=V, pad_hw=(Hp, Wp))
             datas_full.append(data)
             datas.append(_shard_pm_data(data, rows[k]))
             sds.append(_split_rows(sd, rows[k]))
             sns.append(_split_rows(sn, rows[k]))
-            keys.append(rng.prng_key(rng_seed * 7919 + vi["ref_idx"] * 131 + level
+            keys.append(rng.prng_key(rng_seed * 7919 + ref_idx * 131 + level
                                      + 1000 * (geometric_iter + 1)))
         cores = step(datas, sds, sns, keys)
         full_states = [
             patchmatch.PMState(*(_gather_rows([getattr(st, f) for st in vst], rows[k][0])
                                  for f in patchmatch.PMState._fields))
             for k, vst in enumerate(cores)]
-        prev_shapes = [g.shape for g in lvl_grays]
+        prev_shapes = [lv[0].shape for lv in lvls]
 
     geometric_follows = (not is_geometric) and opts.estimation_geometric_iters > 0
     packed = [patchmatch.pack_state(patchmatch.finalize(st, d, opts, geometric_follows))
               for st, d in zip(full_states, datas_full)]
     results = {}
-    for k, vi in enumerate(views_info):
-        Hf, Wf = vi["img"].gray.shape
+    for k, (ref_idx, view) in enumerate(views_info):
+        Hf, Wf = view.image.gray.shape
         pk = packed[k].cpu().numpy()[:Hf, :Wf]
-        results[vi["img"].meta.id] = D.DepthMapResult(
-            image_idx=vi["ref_idx"],
+        results[view.image.meta.id] = D.DepthMapResult(
+            image_idx=ref_idx,
             depth=np.array(pk[..., 0], np.float32, copy=True, order="C"),
             normal=np.array(pk[..., 1:4], np.float32, copy=True, order="C"),
             conf=np.array(pk[..., 4], np.float32, copy=True, order="C"),
-            d_min=vi["d_min"], d_max=vi["d_max"], neighbor_ids=vi["nbr_ids"],
-            camera=vi["cam"])   # the final level is the full working resolution
+            d_min=view.d_min, d_max=view.d_max, neighbor_ids=view.nbr_ids,
+            camera=view.camera)   # the final level is the full working resolution
     return results
 
 

@@ -19,15 +19,14 @@ replay's key on the host and copies the rows in.
 ``block_uniform`` (counterpart of ``openmvs_tpu/ops/patchmatch.py:687-720``)
 runs in torch. torch has no usable uint32 arithmetic, so words are int64
 masked to 32 bits, and multiplies by 32-bit constants are split into 16-bit
-halves so no product leaves int64. Under ``OMVS_OLD_RNG`` (read at call
-time) it draws shape-based uniforms instead, one per block of the array,
-as ``jax.random.uniform`` does (``uniform``: threefry2x32 over the
-counters, in torch).
+halves so no product leaves int64. With ``old_rng`` (the sweep's
+``Switches.old_rng``) it draws shape-based uniforms instead, one per block
+of the array, as ``jax.random.uniform`` does (``uniform``: threefry2x32
+over the counters, in torch).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
@@ -132,15 +131,15 @@ BLOCK = 8
 
 
 def block_uniform(key, uv: torch.Tensor, minval: float = 0.0,
-                  maxval: float = 1.0) -> torch.Tensor:
+                  maxval: float = 1.0, old_rng: bool = False) -> torch.Tensor:
     """Per-BLOCKxBLOCK-tile uniforms hashed from (key, global block coords).
 
     uv: (H, W, 2) float pixel coordinates; the key as ``threefry2x32_t``
-    takes it. Bit-identical to the JAX package's ``_block_uniform``. Under
-    ``OMVS_OLD_RNG`` the uniforms are instead one ``uniform`` draw of shape
+    takes it. Bit-identical to the JAX package's ``_block_uniform``. With
+    ``old_rng`` the uniforms are instead one ``uniform`` draw of shape
     (ceil(H / 8), ceil(W / 8)), each repeated over its block (the JAX
     package's diagnostic)."""
-    if os.environ.get("OMVS_OLD_RNG"):
+    if old_rng:
         H, W = uv.shape[:2]
         u = uniform(key, (-(-H // BLOCK), -(-W // BLOCK)), minval, maxval, uv.device)
         u = torch.repeat_interleave(torch.repeat_interleave(u, BLOCK, 0), BLOCK, 1)

@@ -1,5 +1,6 @@
-"""densify's diagnostic switches in the port, read at call time as the JAX
-package reads them (openmvs_tpu/densify.py:294-345,
+"""densify's diagnostic switches in the port (``patchmatch.Switches``, read
+from the environment at each ``estimate_depth_map`` call, as the JAX
+package reads them per call: openmvs_tpu/densify.py:294-345,
 openmvs_tpu/ops/patchmatch.py:687-720), each against the JAX package on the
 CPU: ``OMVS_ALL_EXACT``, ``OMVS_INIT_EXACT``, ``OMVS_EARLY_EXIT=0``,
 ``OMVS_EE_MIN``/``OMVS_EE_EPS``/``OMVS_EE_FRAC`` and ``OMVS_OLD_RNG``.
@@ -31,6 +32,7 @@ from openmvs_tpu.ops import patchmatch as jpm  # noqa: E402
 from openmvs_tpu.view_selection import select_views_for_scene as jax_select  # noqa: E402
 from openmvs_tpu_torch import densify as pdens  # noqa: E402
 from openmvs_tpu_torch.config import DenseOptions  # noqa: E402
+from openmvs_tpu_torch.ops.patchmatch import Switches  # noqa: E402
 from openmvs_tpu_torch.synthetic import build_gt_scene  # noqa: E402
 from openmvs_tpu_torch.utils import rng  # noqa: E402
 from openmvs_tpu_torch.view_selection import select_views_for_scene  # noqa: E402
@@ -121,7 +123,9 @@ def test_old_rng_uniforms_equal_jax(seed, monkeypatch):
     uv = np.stack(np.meshgrid(np.arange(61), np.arange(43)), -1).astype(np.float32)
     monkeypatch.setenv("OMVS_OLD_RNG", "1")
     ref = np.asarray(jpm._block_uniform(key, jnp.asarray(uv), 0.5, 2.0))
-    out = rng.block_uniform(k, torch.from_numpy(uv), 0.5, 2.0).numpy()
+    out = rng.block_uniform(k, torch.from_numpy(uv), 0.5, 2.0,
+                            Switches.from_env().old_rng).numpy()
     np.testing.assert_array_equal(out, ref)
     monkeypatch.delenv("OMVS_OLD_RNG")
-    assert not np.array_equal(rng.block_uniform(k, torch.from_numpy(uv), 0.5, 2.0).numpy(), out)
+    assert not np.array_equal(rng.block_uniform(k, torch.from_numpy(uv), 0.5, 2.0,
+                                                Switches.from_env().old_rng).numpy(), out)

@@ -76,7 +76,8 @@ def test_split_sweep_matches_jax_split(case, monkeypatch, rescore):
                    rescore_state=rescore)
     monkeypatch.setenv("OMVS_GEOM_SPLIT", "1")
     ps = tpm.sweep(port_state(st), port_data(data), po, _key(key), V,
-                   use_geom=True, mode="exact", fold=2, rescore_state=rescore)
+                   use_geom=True, mode="exact", fold=2, rescore_state=rescore,
+                   switches=tpm.Switches.from_env())
     share = equal_share(js, ps)
     assert share >= 0.999, share
 
@@ -91,7 +92,7 @@ def test_route_equals_default_sweep(case, monkeypatch, route, mode):
     for k, val in ROUTES[route].items():
         monkeypatch.setenv(k, val)
     other = tpm.sweep(ps, pd, po, _key(key), V, use_geom=True, mode=mode,
-                      fold=2, rescore_state=True)
+                      fold=2, rescore_state=True, switches=tpm.Switches.from_env())
     for a, b in zip(base, other):
         assert torch.equal(a, b)
 
@@ -101,7 +102,7 @@ def test_geom_all_views_matches_jax(case, capsys, monkeypatch):
     cd, _, _ = _candidates(case)
     ref = np.asarray(jpm._geom_all_views(data, V, cd))
     monkeypatch.setenv("OMVS_GEOM_DEBUG", "1")
-    out = tpm._geom_all_views(port_data(data), V, t(cd)).numpy()
+    out = tpm._geom_all_views(port_data(data), V, t(cd), tpm.Switches.from_env()).numpy()
     assert out.shape == ref.shape == (V,) + tuple(cd.shape)
     d = np.abs(out - ref)
     assert (d < 1e-3).mean() >= 0.995, ((d < 1e-3).mean(), d.max())
@@ -172,10 +173,11 @@ def test_geometric_map_routes_under_split(case, monkeypatch):
     pd = port_data(data)
     calls = _counting(monkeypatch)
     monkeypatch.setenv("OMVS_GEOM_SPLIT", "1")
+    sw = tpm.Switches.from_env()
     state = tpm.init_state(pd, po, _key(key), st.depth, st.normal, V, True,
-                           mode="exact")
+                           mode="exact", switches=sw)
     tpm.sweep(state, pd, po, _key(key), V, True, n_perturb=3, mode="exact",
-              n_prop=8, fold=1)
+              n_prop=8, fold=1, switches=sw)
     assert calls == {("score_views_geom", 1): 1, ("geom_terms", 11): 2,
                      ("score_views_pre", 11): 2}
 

@@ -109,19 +109,20 @@ def _views(geom):
     return [a, b], popts
 
 
-def _eager_schedule(data, opts, key, V, use_geom, min_frac):
+def _eager_schedule(data, opts, key, V, use_geom, min_frac, sw):
     H, W = data.ref.shape
     sd = torch.full((H, W), 5.0)
     sn = torch.tensor([0.0, 0.0, -1.0]).expand(H, W, 3).contiguous()
-    st = patchmatch.init_state(data, opts, key, sd, sn, V, use_geom, mode="nn")
+    st = patchmatch.init_state(data, opts, key, sd, sn, V, use_geom, mode="nn", switches=sw)
     st, n = patchmatch.sweep_block_adaptive(st, data, opts, key, V, use_geom, n_perturb=2,
                                             mode="nn", n_prop=8, first_fold=1, n_sweeps=3,
-                                            min_sweeps=2, eps=5e-3, min_frac=min_frac)
+                                            min_sweeps=2, eps=5e-3, min_frac=min_frac,
+                                            switches=sw)
     before = st.conf
     st = patchmatch.sweep(st, data, opts, key, V, use_geom, n_perturb=2, mode="exact",
-                          rescore_state=True, n_prop=8, fold=4)
+                          rescore_state=True, n_prop=8, fold=4, switches=sw)
     st = patchmatch.sweep(st, data, opts, key, V, use_geom, n_perturb=2, mode="exact",
-                          n_prop=8, fold=5, active_eps=1e-3, conf_prev=before)
+                          n_prop=8, fold=5, active_eps=1e-3, conf_prev=before, switches=sw)
     return st, n, (sd, sn)
 
 
@@ -135,6 +136,7 @@ def test_runner_programs_equal_the_eager_sweeps(geom, split, monkeypatch):
     (``OMVS_GEOM_SPLIT``)."""
     if split:
         monkeypatch.setenv("OMVS_GEOM_SPLIT", split)
+    sw = patchmatch.Switches.from_env()
     views, opts = _views(geom)
     runner = graphs.Runner("cpu")
     done = []
@@ -142,8 +144,8 @@ def test_runner_programs_equal_the_eager_sweeps(geom, split, monkeypatch):
         data = views[i]
         V = data.views.image.shape[0]
         key = rng.prng_key(17 + i)
-        want, n_want, (sd, sn) = _eager_schedule(data, opts, key, V, geom, min_frac)
-        pm = graphs.Sweeps(data, opts, V, geom, runner)
+        want, n_want, (sd, sn) = _eager_schedule(data, opts, key, V, geom, min_frac, sw)
+        pm = graphs.Sweeps(data, opts, V, geom, runner, sw)
         pm.init(key, sd, sn, "nn")
         n = pm.block(key, 2, "nn", 8, 1, 3, 2, 5e-3, min_frac)
         pm.sweep(key, 4, "exact", True, 2, 8)

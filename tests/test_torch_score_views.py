@@ -128,7 +128,8 @@ def test_score_hypotheses_is_score_views_plain(cases, monkeypatch, route):
     if route == "unfused":
         monkeypatch.setenv("OMVS_GEOM_FUSED", "0")
     out = tpm.score_hypotheses(pd, po, ps, t(cd), t(cn), V, geom != "none", "exact",
-                               geom_terms=t(g) if route == "pre" else None)
+                               geom_terms=t(g) if route == "pre" else None,
+                               switches=tpm.Switches.from_env())
     torch.testing.assert_close(out, plain, rtol=0, atol=0, equal_nan=True)
 
 
