@@ -34,7 +34,12 @@ around the call, the stages ``timed`` logs, and in the PatchMatch path
 ``pm.download``, ``filter.project`` and ``filter.decide`` per view (and on
 a card ``filter.upload`` and the counter ``filter.card_splats``), and
 fusion's ``fuse.*`` steps; ``graphs`` adds ``graphs.capture`` and the
-counter ``pm.sweeps``.
+counter ``pm.sweeps``; ``LevelStore`` the counters ``pm.levels_built``,
+``pm.levels_reused`` and ``pm.card_neighbour_maps``.
+
+A call's level images and the maps a geometric pass reads are a
+``LevelStore``'s, on the device: each image resized and uploaded once per
+call, each map read where the previous pass estimated it.
 
 ``dense_reconstruction(devices=[...])`` deals the views to one worker
 thread per device; ``mesh=`` (``parallel/``) shards PatchMatch estimation
@@ -65,8 +70,8 @@ from openmvs_tpu_torch.scene import PointCloud, Scene
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils import rng, safety
 from openmvs_tpu_torch.utils.fmath import fma
-from openmvs_tpu_torch.utils.log import (Progress, dump_depth_artifacts, get_logger,
-                                         profile_trace, span, timed)
+from openmvs_tpu_torch.utils.log import (Progress, count, dump_depth_artifacts,
+                                         get_logger, profile_trace, span, timed)
 from openmvs_tpu_torch.view_selection import select_views_for_scene
 
 log = get_logger("densify")
@@ -155,18 +160,22 @@ def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
-def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.ndarray],
-                   nbr_cams: List[Camera], opts: DenseOptions, d_min: float, d_max: float,
-                   lowres_prior, nbr_depths: Optional[List[np.ndarray]] = None,
-                   usable: Optional[np.ndarray] = None, device="cuda", pad_views: int = 0,
+def _build_pm_data(ref_gray, ref_cam: Camera, nbr_grays: list, nbr_cams: List[Camera],
+                   opts: DenseOptions, d_min: float, d_max: float, lowres_prior,
+                   nbr_depths: Optional[list] = None, usable: Optional[np.ndarray] = None,
+                   device="cuda", pad_views: int = 0,
                    pad_hw: Optional[Tuple[int, int]] = None) -> patchmatch.PMData:
-    """The static per-view arrays of the PatchMatch sweep, assembled on the
-    host and packed on ``device`` (``patchmatch.pack_pm_data``).
+    """The static per-view arrays of the PatchMatch sweep, packed on
+    ``device`` (``patchmatch.pack_pm_data``). The images and depth maps
+    (tensors on ``device``, as a ``LevelStore`` serves them, or host arrays)
+    are laid into zero-padded ``(V, Hp, Wp)`` stacks there; the cameras'
+    constants are computed on the host.
 
     pad_views / pad_hw pad the neighbour-view axis and the neighbour-image
     extents to common sizes, so that the views of the sharded path stack
     (a padded view has size (0, 0): every sample lands out of bounds,
     scores th_robust, and the min-mean ignores it)."""
+    dev = torch.device(device)
     H, W = ref_gray.shape
     V = max(len(nbr_grays), pad_views)
     Hp = max(g.shape[0] for g in nbr_grays)
@@ -174,11 +183,11 @@ def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.nda
     if pad_hw is not None:
         Hp, Wp = max(Hp, pad_hw[0]), max(Wp, pad_hw[1])
 
-    images = np.zeros((V, Hp, Wp), np.float32)
+    images = torch.zeros((V, Hp, Wp), dtype=torch.float32, device=dev)
+    depths = torch.zeros((V, Hp, Wp), dtype=torch.float32, device=dev)
     sizes = np.zeros((V, 2), np.float32)
     Hl = np.zeros((V, 3, 3), np.float32)
     Hm = np.zeros((V, 3), np.float32)
-    depths = np.zeros((V, Hp, Wp), np.float32)
     Tl = np.zeros((V, 3, 3), np.float32)
     Tm = np.zeros((V, 3), np.float32)
     Tr = np.zeros((V, 3, 3), np.float32)
@@ -187,7 +196,7 @@ def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.nda
     Ri, Ci, Ki = ref_cam.R, ref_cam.C, ref_cam.K
     for j, (g, cam) in enumerate(zip(nbr_grays, nbr_cams)):
         h, w = g.shape
-        images[j, :h, :w] = g
+        images[j, :h, :w] = torch.as_tensor(g, dtype=torch.float32, device=dev)
         sizes[j] = (h, w)
         # homography constants (DepthMap.h:175-185): Hl = Kj Rj Ri^T,
         # Hm = Kj Rj (Ci - Cj); Hr = Ki^-1 is folded into X0/goff.
@@ -195,7 +204,8 @@ def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.nda
         Hm[j] = cam.K @ cam.R @ (Ci - cam.C)
         if nbr_depths is not None:
             dmap = nbr_depths[j]
-            depths[j, : dmap.shape[0], : dmap.shape[1]] = dmap
+            depths[j, : dmap.shape[0], : dmap.shape[1]] = torch.as_tensor(
+                dmap, dtype=torch.float32, device=dev)
             # geometric-consistency constants (DepthMap.h:170-173)
             Tl[j], Tm[j] = Hl[j], Hm[j]
             Tr[j] = Ki @ Ri @ cam.R.T @ np.linalg.inv(cam.K)
@@ -205,17 +215,17 @@ def _build_pm_data(ref_gray: np.ndarray, ref_cam: Camera, nbr_grays: List[np.nda
     Kinv = ref_cam.Kinv
     goff = np.concatenate([offs, np.zeros((len(offs), 1), np.float32)], axis=-1) @ Kinv.T
 
-    um = np.ones((H, W), bool)
-    if usable is not None:
-        um = usable
-        if um.shape != (H, W):
-            um = imio.resize_nearest(um, W, H)
+    if usable is None:
+        um = torch.ones((H, W), dtype=torch.bool, device=dev)
+    else:
+        um = usable if usable.shape == (H, W) else imio.resize_nearest(usable, W, H)
 
-    lowres = lowres_prior if lowres_prior is not None else np.zeros((H, W), np.float32)
+    lowres = (lowres_prior if lowres_prior is not None
+              else torch.zeros((H, W), dtype=torch.float32, device=dev))
     return patchmatch.pack_pm_data(
-        opts, ref_gray.astype(np.float32), images, sizes, Hl, Hm, depths, Tl, Tm, Tr, Tn,
+        opts, ref_gray, images, sizes, Hl, Hm, depths, Tl, Tm, Tr, Tn,
         np.ascontiguousarray(Kinv.T).astype(np.float32), goff.astype(np.float32),
-        np.float32(d_min), np.float32(d_max), lowres, um, device=device)
+        np.float32(d_min), np.float32(d_max), lowres, um, device=dev)
 
 
 class DeferredResult:
@@ -238,6 +248,90 @@ class DeferredResult:
         return r
 
 
+class LevelStore:
+    """The level inputs of one densify call, on its devices.
+
+    Each scene image at each pyramid scale is resized on the host once
+    (``_resize_gray``, so its values are the host resize's bits) and put on
+    a device once; every later set-up on that device is served the same
+    tensor. The depth map a pass estimated is kept where it was estimated
+    (``keep``), for the next geometric pass to read as a neighbour map
+    without a download and an upload; a map with no copy on the asking
+    device (resumed from a ``.dmap``, or estimated on another device) is
+    uploaded once and kept. ``retain`` drops the maps a pass has replaced.
+
+    ``dense_reconstruction`` owns one for the call, as it owns its
+    ``graphs.Runners``, and releases it when the call returns (or at the
+    end of a ``with`` block); ``estimate_depth_map`` and
+    ``parallel.sharded.estimate_views_sharded`` called without one make
+    their own. Worker threads share it under its lock.
+
+    Counters (``utils/log.count``): ``pm.levels_built``, a level image made
+    and put on a device; ``pm.levels_reused``, one served from the store;
+    ``pm.card_neighbour_maps``, a neighbour map served from its device
+    copy. ``uploads`` counts the neighbour maps uploaded from the host."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._images: Dict[tuple, tuple] = {}   # (id(gray), scale, device) -> (gray, tensor)
+        self._maps: Dict[tuple, tuple] = {}     # (id(result), device) -> (result, tensor)
+        self.uploads = 0
+
+    def __enter__(self) -> "LevelStore":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+    def release(self) -> None:
+        """Let go of every tensor; the upload count stays."""
+        with self._lock:
+            self._images.clear()
+            self._maps.clear()
+
+    def image(self, gray: np.ndarray, s: float, device: torch.device) -> torch.Tensor:
+        """``gray`` at pyramid scale ``s``, float32 on ``device``. The key
+        holds the array itself, so its id names it while the entry lives."""
+        key = (id(gray), s, device)
+        with self._lock:
+            hit = self._images.get(key)
+            if hit is None:
+                level = np.asarray(_resize_gray(gray, s), np.float32)
+                hit = self._images[key] = (gray, torch.as_tensor(level, device=device))
+                count("pm.levels_built")
+            else:
+                count("pm.levels_reused")
+        return hit[1]
+
+    def keep(self, result: DepthMapResult, depth: torch.Tensor, device: torch.device) -> None:
+        """Keep ``depth``, ``result``'s map on ``device`` before its
+        download, for the next geometric pass."""
+        with self._lock:
+            self._maps[(id(result), device)] = (result, depth)
+
+    def depth(self, result: DepthMapResult, device: torch.device) -> torch.Tensor:
+        """``result``'s depth map on ``device``: the copy kept there, else
+        its host map uploaded and kept."""
+        key = (id(result), device)
+        with self._lock:
+            hit = self._maps.get(key)
+            if hit is None:
+                hit = self._maps[key] = (result, torch.as_tensor(
+                    result.depth, dtype=torch.float32, device=device))
+                self.uploads += 1
+            else:
+                count("pm.card_neighbour_maps")
+        return hit[1]
+
+    def retain(self, results) -> None:
+        """Drop the maps of every result not among ``results``: those a
+        pass has replaced."""
+        live = {id(r) for r in results}
+        with self._lock:
+            self._maps = {k: v for k, v in self._maps.items() if k[0] in live}
+
+
 @dataclass
 class ViewSetup:
     """What a reference view's PatchMatch estimation starts from
@@ -252,21 +346,24 @@ class ViewSetup:
     d_min: float
     d_max: float
 
-    def level(self, s: float, neighbor_results: Optional[dict] = None):
+    def level(self, s: float, levels: LevelStore, device: torch.device,
+              neighbor_results: Optional[dict] = None):
         """(reference gray, its camera, neighbour grays, their cameras,
-        their depth maps) at pyramid scale ``s``; the depths, from
+        their depth maps) at pyramid scale ``s``, the grays and depths as
+        tensors on ``device`` served by ``levels``; the depths, from
         ``neighbor_results`` (an 8x8 zero map where one is absent), only
         where those are given."""
-        ref = _resize_gray(self.image.gray, s)
-        grays = [_resize_gray(n.gray, s) for n in self.nbr_imgs]
+        ref = levels.image(self.image.gray, s, device)
+        grays = [levels.image(n.gray, s, device) for n in self.nbr_imgs]
         cams = [n.working_camera() for n in self.nbr_imgs]
         cam = self.camera
         if s != 1.0:
             cam = cam.scaled(ref.shape[1] / self.image.gray.shape[1])
             cams = [c.scaled(g.shape[1] / n.gray.shape[1])
                     for c, g, n in zip(cams, grays, self.nbr_imgs)]
-        depths = ([r.depth if (r := neighbor_results.get(i)) is not None
-                   else np.zeros((8, 8), np.float32) for i in self.nbr_ids]
+        depths = ([levels.depth(r, device) if (r := neighbor_results.get(i)) is not None
+                   else torch.zeros((8, 8), dtype=torch.float32, device=device)
+                   for i in self.nbr_ids]
                   if neighbor_results else None)
         return ref, cam, grays, cams, depths
 
@@ -342,6 +439,7 @@ def estimate_depth_map(
     device="cuda",
     runners: Optional[graphs.Runners] = None,
     switches: Optional[patchmatch.Switches] = None,
+    levels: Optional[LevelStore] = None,
     _eager: bool = False,
 ):
     """PatchMatch depth estimation for one reference view.
@@ -358,17 +456,27 @@ def estimate_depth_map(
     the sweeps run eagerly unless ``runners`` is given (the runner's CPU
     form). ``_eager`` runs them eagerly on the card too, the reference the
     graphs are checked against.
+
+    The level images and the neighbours' depth maps come from ``levels`` (a
+    ``dense_reconstruction`` call's ``LevelStore``), else from a store of
+    this call's own. Where a geometric pass follows, the map is kept there
+    on the device before its download.
     """
+    if levels is None:
+        with LevelStore() as own:
+            return estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results,
+                                      geometric_iter, rng_seed, defer_download, device,
+                                      runners, switches, own, _eager)
     switches = switches or patchmatch.Switches.from_env()
     with span("pm.view", view=ref_idx,
               **{"pass": "photometric" if geometric_iter < 0 else f"geometric {geometric_iter}"}):
         return _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results,
                                    geometric_iter, rng_seed, defer_download, device,
-                                   runners, switches, _eager)
+                                   runners, switches, levels, _eager)
 
 
 def _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results, geometric_iter,
-                        rng_seed, defer_download, device, runners, switches, _eager):
+                        rng_seed, defer_download, device, runners, switches, levels, _eager):
     dev = devmod.resolve(device)
     runner = None
     if not _eager and (runners is not None or dev.type == "cuda"):
@@ -386,7 +494,7 @@ def _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results, geometric_
             with span("pm.setup"):
                 s = 1.0 / (2 ** level)
                 ref_gray, ref_cam, nbr_grays, nbr_cams, nbr_depths = view.level(
-                    s, neighbor_results if is_geometric else None)
+                    s, levels, dev, neighbor_results if is_geometric else None)
                 if state is None:
                     sd, sn = view.seeds(s, ref_gray.shape)
                 else:
@@ -426,7 +534,10 @@ def _estimate_depth_map(scene, ref_idx, opts, prev, neighbor_results, geometric_
             d_min=view.d_min, d_max=view.d_max, neighbor_ids=view.nbr_ids,
             camera=ref_cam, device=dev,
         )
-        deferred = DeferredResult(patchmatch.pack_state(final), template)
+        packed = patchmatch.pack_state(final)
+        if geometric_iter + 1 < opts.estimation_geometric_iters:
+            levels.keep(template, packed[..., 0].contiguous(), dev)
+        deferred = DeferredResult(packed, template)
     if defer_download:
         return deferred
     return deferred.resolve()
@@ -768,7 +879,8 @@ def dense_reconstruction(
     pass (``ops/graphs.py``), and released with their memory pools when
     the call returns; ``_eager`` launches them one by one instead, the
     reference the graphs are checked against. The sharded path stays
-    eager."""
+    eager. The call's ``LevelStore`` holds the level images and the maps
+    the geometric passes read, on the devices, until it returns."""
     with profile_trace("densify"), span("densify"), contextlib.ExitStack() as call:
         switches = patchmatch.Switches.from_env()
         dev = devmod.resolve(device)
@@ -830,22 +942,25 @@ def dense_reconstruction(
 
         use_sgm = opts.estimator == "sgm"
         use_sharded = mesh is not None and mesh.size > 1 and not use_sgm
-        # the call's graph programs, released with their pools when it returns
+        # the call's graph programs, released with their pools when it
+        # returns, and its level images and neighbour maps on the devices
         runners = (call.enter_context(graphs.Runners())
                    if not _eager and any(d.type == "cuda" for d in devices) else None)
+        levels = call.enter_context(LevelStore())
         if use_sharded:
             from openmvs_tpu_torch.parallel import sharded
 
             with timed(log, f"photometric pass sharded {mesh.shape}"):
                 results.update(sharded.estimate_views_sharded(
-                    scene, opts, mesh, skip_ids=resumed, switches=switches))
+                    scene, opts, mesh, skip_ids=resumed, switches=switches, levels=levels))
             for gi in range(opts.estimation_geometric_iters):
                 with timed(log, f"geometric pass {gi} sharded"):
                     new = sharded.estimate_views_sharded(
                         scene, opts, mesh, prev_results=results, geometric_iter=gi,
-                        skip_ids=resumed, switches=switches)
+                        skip_ids=resumed, switches=switches, levels=levels)
                 new.update({rid: results[rid] for rid in resumed if rid in results})
                 results = new
+                levels.retain(results.values())
         else:
             # pass 1: photometric estimation
             todo = [i for i in range(scene.n_views)
@@ -857,7 +972,8 @@ def dense_reconstruction(
             else:
                 est = lambda i, d: estimate_depth_map(scene, i, opts, defer_download=True,
                                                       device=d, runners=runners,
-                                                      switches=switches, _eager=_eager)
+                                                      switches=switches, levels=levels,
+                                                      _eager=_eager)
             with timed(log, f"photometric pass ({len(todo)} views)"):
                 raw = _run_views_parallel(est, todo, devices)
             for i, r in raw.items():
@@ -877,13 +993,14 @@ def dense_reconstruction(
                         scene, i, opts, prev=results[scene.images[i].meta.id],
                         neighbor_results=results, geometric_iter=gi,
                         defer_download=True, device=d, runners=runners,
-                        switches=switches, _eager=_eager), have, devices)
+                        switches=switches, levels=levels, _eager=_eager), have, devices)
                 # resumed views (and failed re-estimations) keep contributing
                 new_results: Dict[int, DepthMapResult] = dict(results)
                 for i, r in raw.items():
                     if r is not None:
                         new_results[scene.images[i].meta.id] = r
                 results = new_results
+                levels.retain(results.values())
 
         # optimize: speckle + gaps (resumed views were optimized before saving)
         with timed(log, "optimize depth maps"):

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from openmvs_tpu_torch.config import DenseOptions
 from openmvs_tpu_torch.ops import patchmatch
@@ -203,16 +204,23 @@ def make_level_step(opts: DenseOptions, n_views: int, plan: patchmatch.Schedule,
 def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
                            prev_results=None, geometric_iter: int = -1,
                            rng_seed: int = 0, skip_ids=(),
-                           switches: Optional[patchmatch.Switches] = None
-                           ) -> Dict[int, object]:
+                           switches: Optional[patchmatch.Switches] = None,
+                           levels=None) -> Dict[int, object]:
     """Sharded equivalent of densify.estimate_depth_map over ALL views.
 
     Returns {image_id: DepthMapResult}, equal to the serial path's results
     run without the adaptive early exit. ``switches`` are read from the
-    environment where not given."""
+    environment where not given. The level images and neighbour maps come
+    from ``levels`` (a ``densify.LevelStore``; one of this call's own where
+    not given), which keeps each map on its row's first device where a
+    geometric pass follows."""
     from openmvs_tpu_torch import densify as D
     from openmvs_tpu_torch.io import images as imio
 
+    if levels is None:
+        with D.LevelStore() as own:
+            return estimate_views_sharded(scene, opts, mesh, prev_results, geometric_iter,
+                                          rng_seed, skip_ids, switches, own)
     switches = switches or patchmatch.Switches.from_env()
     n_views_axis, n_tile = mesh.shape
     is_geometric = geometric_iter >= 0
@@ -246,8 +254,8 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
     datas_full = None
     for level in range(plan.levels, -1, -1):
         s = 1.0 / (2 ** level)
-        lvls = [view.level(s, prev_results if is_geometric else None)
-                for _, view in views_info]
+        lvls = [view.level(s, levels, rows[k][0], prev_results if is_geometric else None)
+                for k, (_, view) in enumerate(views_info)]
         h_log = max(lv[0].shape[0] for lv in lvls)
         w_log = max(lv[0].shape[1] for lv in lvls)
         # pad rows so the tile axis divides them into 8-aligned cores of at
@@ -263,7 +271,7 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
             dev0 = rows[k][0]
             gray, ref_cam, nbr_grays, nbr_cams, nbr_depths = lvls[k]
             h, w = gray.shape
-            ref_gray = np.pad(gray, ((0, Hl_ - h), (0, Wl_ - w)))
+            ref_gray = F.pad(gray, (0, Wl_ - w, 0, Hl_ - h))
             # usable: the serial mask resized at the logical size, False in
             # the bottom/right padding, and clamped to the serial window-inside
             # region (the padded canvas would shift that test)
@@ -281,7 +289,7 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
             if full_states is None:
                 # level seeds from the sparse cloud (or the previous pass)
                 sd, sn = (torch.from_numpy(a).to(dev0) for a in view.seeds(s, (Hl_, Wl_)))
-                lowres = np.zeros((Hl_, Wl_), np.float32)
+                lowres = None
             else:
                 # the previous level's state upsampled over each view's own
                 # logical box (jax.image.resize's linear and nearest), padded
@@ -311,17 +319,20 @@ def estimate_views_sharded(scene, opts: DenseOptions, mesh: ShardMesh,
     geometric_follows = (not is_geometric) and opts.estimation_geometric_iters > 0
     packed = [patchmatch.pack_state(patchmatch.finalize(st, d, opts, geometric_follows))
               for st, d in zip(full_states, datas_full)]
+    keep = geometric_iter + 1 < opts.estimation_geometric_iters
     results = {}
     for k, (ref_idx, view) in enumerate(views_info):
         Hf, Wf = view.image.gray.shape
         pk = packed[k].cpu().numpy()[:Hf, :Wf]
-        results[view.image.meta.id] = D.DepthMapResult(
+        r = results[view.image.meta.id] = D.DepthMapResult(
             image_idx=ref_idx,
             depth=np.array(pk[..., 0], np.float32, copy=True, order="C"),
             normal=np.array(pk[..., 1:4], np.float32, copy=True, order="C"),
             conf=np.array(pk[..., 4], np.float32, copy=True, order="C"),
             d_min=view.d_min, d_max=view.d_max, neighbor_ids=view.nbr_ids,
             camera=view.camera)   # the final level is the full working resolution
+        if keep:
+            levels.keep(r, packed[k][:Hf, :Wf, 0].contiguous(), rows[k][0])
     return results
 
 
