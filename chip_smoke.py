@@ -29,7 +29,10 @@ Phases, each printing one JSON line:
                   stack), timed in the same call; K1-v2 against K1; the
                   cross-view filter's splat and decide kernels at 800x600
                   with 8 neighbours against their plain twin (bit for bit)
-                  and the host NumPy filter (share of equal pixels)
+                  and the host NumPy filter (share of equal pixels); fusion's
+                  kernels on the same 9 views with normals and colours
+                  against their twin on the CPU and the host NumPy fusion
+                  (bit for bit), one row for the whole job
   4. variants   - K1 against K1-v2 on the dev script's inputs (C=11,
                   480x640, T=25): times, and the share of (candidate, pixel)s
                   whose texels all came from K1-v2's staged window; then
@@ -515,6 +518,11 @@ KERNEL_LINE = (
      "none: host NumPy, openmvs_tpu/ops/filters.py project_depth_to_view", "densify"),
     ("filter_decide_adjust", "filter_splat.cu",
      "none: host NumPy, openmvs_tpu/ops/filters.py filter_depth_adjust", "densify"),
+    # fusion's kernels, where the JAX package fuses on the host in NumPy
+    # (one row for one 9-view 800x600 fusion, 8 neighbours a view: every
+    # kernel's launches, the twin and the bound of the whole job)
+    ("fuse_views", "fuse_views.cu",
+     "none: host NumPy, openmvs_tpu/ops/fusion.py fuse_depth_maps", "densify"),
 )
 
 
@@ -1066,6 +1074,133 @@ def _filter_kernel_rows(card):
     return rows
 
 
+def fusion_views(grid, n_views, seed, device, W=800, H=600):
+    """``n_views`` views of mvs_bench/scene_gen's ``grid`` x ``grid``
+    layout at the benchmark's level-1 size as fusion's input: true depths
+    (a tenth of the pixels dropped), the surface's normals in each camera's
+    frame facing it, confidences and colours from ``seed``; each view's
+    neighbours every other view. Phase kernels and
+    tests/test_torch_fusion_card.py fuse them."""
+    import numpy as np
+    import torch
+
+    from mvs_bench import harness, scene_gen
+    from openmvs_tpu_torch.geometry.camera import Camera
+    from openmvs_tpu_torch.ops import fusion
+
+    cfg = harness.resolve("dtu-pm.scene").config["scene"]
+    K = scene_gen.scale_intrinsics(scene_gen.intrinsics(cfg["image_width"], cfg["image_height"]),
+                                   W / cfg["image_width"])
+    rng = np.random.default_rng(seed)
+    centres = scene_gen.grid_centers(grid, cfg["spacing"])[:n_views]
+    views = []
+    for i, C in enumerate(centres):
+        depth, x, y = scene_gen.ray_march(K, C, W, H, device)
+        xs, ys = x.detach().requires_grad_(), y.detach().requires_grad_()
+        gx, gy = torch.autograd.grad(scene_gen.height(xs, ys).sum(), (xs, ys))
+        n = torch.stack([gx, gy, -torch.ones_like(gx)], -1)
+        n = (n / n.norm(dim=-1, keepdim=True)).float().cpu().numpy()
+        d = depth.float().cpu().numpy()
+        d[rng.random(d.shape) < 0.1] = 0.0
+        conf = np.where(d > 0, rng.uniform(0.1, 1.0, d.shape), 0).astype(np.float32)
+        colour = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        views.append(fusion.ViewDepthData(
+            i, i, Camera(K, np.eye(3), C), d, np.ascontiguousarray(n), conf, colour,
+            [j for j in range(len(centres)) if j != i]))
+    return views
+
+
+def _same_cloud(a, b) -> bool:
+    import numpy as np
+
+    return (a.points.view(np.uint32).tobytes() == b.points.view(np.uint32).tobytes()
+            and a.colors.tobytes() == b.colors.tobytes()
+            and a.normals.view(np.uint32).tobytes() == b.normals.view(np.uint32).tobytes()
+            and len(a.views) == len(b.views)
+            and all(x.dtype == y.dtype and np.array_equal(x, y)
+                    for x, y in zip(a.views, b.views))
+            and all(x.dtype == y.dtype and np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                    for x, y in zip(a.weights, b.weights)))
+
+
+def _bound_fusion(px, n_points, n_members, n_nb):
+    """(ms, "bytes" or "operations"): the least time of one 9-view fusion
+    on the card. Bytes: every map read once (depth, confidence, owner 4 B
+    each, the normal 12, the colour 3: 27 B a pixel), every point written
+    once (point and normal 12 B each, colour 3, count 4) and every member
+    (view id and weight, 8 B). Operations: at least one candidate a point,
+    each projected into n_nb neighbours (80 float64 operations: the
+    projection's two 3x3 products and K's rows, 5 each with a fused
+    multiply-add counted 2, the divides, the depth and normal tests) at 34
+    TFLOP/s."""
+    b_ms = (px * 27 + n_points * 31 + n_members * 8) / 3.35e12 * 1e3
+    o_ms = n_points * n_nb * 80 / 34e12 * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+FUSE_KERNELS = ("fuse_claim_kernel", "fuse_count_kernel", "fuse_carry_kernel",
+                "fuse_keep_kernel", "fuse_emit_kernel")
+
+
+def _fusion_kernel_rows(card):
+    """Fusion's kernels on the phase's scene (``fusion_views``: the 3x3
+    grid's 9 views at 800x600): the kernels' cloud against the plain twin
+    (``fuse_views`` on the CPU) and the host NumPy fusion, bit for bit; one
+    row for the whole job: its device time (every launch of one 9-view
+    fusion, the profiler's means), the twin's and the bound, each for the
+    job; per kernel its mean time; the wall time of ``fuse_views``
+    (upload, launches, download and the per-point lists) against the
+    host's."""
+    import torch
+
+    from openmvs_tpu_torch.config import DenseOptions
+    from openmvs_tpu_torch.ops import fusion
+    from openmvs_tpu_torch.ops import fusion_kernel as fk
+
+    dev = torch.device("cuda")
+    views = fusion_views(3, 9, 7, dev)
+    opts = DenseOptions(min_views_fuse=3)
+    fk.fuse_views(views, opts, device=dev)  # the build and the first launches
+    before = dict(fk.LAUNCHES)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = fk.fuse_views(views, opts, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k: (v - before[k]) // 3 for k, v in fk.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    twin = fk.fuse_views(views, opts, device="cpu")
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = fusion.fuse_depth_maps(views, opts)
+    host_s = time.perf_counter() - t0
+    equal_twin, equal_host = _same_cloud(got, twin), _same_cloud(got, host)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fk.fuse_views(views, opts, device=dev)
+        torch.cuda.synchronize()
+    kern = _device_summary(prof, 40)["top"]
+    per = {k: next(((t["total_ms"] / t["count"], t["count"] // 3) for t in kern
+                    if k in t["name"]), (None, 0)) for k in FUSE_KERNELS}
+    job_ms = sum(ms * n for ms, n in per.values() if ms is not None)
+    px = sum(v.depth.size for v in views)
+    members = sum(len(v) for v in host.views)
+    bound, by = _bound_fusion(px, len(host), members, len(views) - 1)
+    rec = {"phase": "kernels", "name": "fuse_views", "H": views[0].depth.shape[0],
+           "W": views[0].depth.shape[1], "views": len(views), "neighbours": len(views) - 1,
+           "points": len(host), "members": members, "blas_fuses": fk.blas_fuses(),
+           "sum_orders": fk.sum_orders(), "equal_twin": equal_twin, "equal_host": equal_host,
+           "kernel_ms": {k: ms for k, (ms, _) in per.items()},
+           "launches_per_job": launches, "ms": job_ms, "plain_ms": twin_s * 1e3,
+           "bound_ms": bound, "bound_by": by, "fuse_views_wall_s": walls,
+           "host_numpy_s": host_s, "card": card}
+    emit(rec)
+    if not (equal_twin and equal_host):
+        raise RuntimeError(f"the fusion kernels disagree: {rec}")
+    return {"fuse_views": dict(rec, max_abs_err=0.0)}
+
+
 def phase_kernels(card, scene, gts):
     import torch
 
@@ -1075,6 +1210,7 @@ def phase_kernels(card, scene, gts):
     rows = _views_kernel_rows(card, scene, gts)
     rows.update(_geom_views_kernel_rows(card, scene, gts))
     rows.update(_filter_kernel_rows(card))
+    rows.update(_fusion_kernel_rows(card))
     for C in (11, 1):
         data, opts, depth, normal, inv_nd = _kernel_inputs(C, dev, scene, gts)
         v = data.views
@@ -1359,7 +1495,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
 
     from openmvs_tpu_torch import densify
     from openmvs_tpu_torch.config import DenseOptions
-    from openmvs_tpu_torch.ops import filter_kernel, pm_kernel
+    from openmvs_tpu_torch.ops import filter_kernel, fusion_kernel, pm_kernel
 
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
@@ -1372,6 +1508,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
                 _graph_runners() as made:
             pm_kernel.reset_launches()
             filter0 = dict(filter_kernel.LAUNCHES)
+            fuse0 = dict(fusion_kernel.LAUNCHES)
             t0 = time.perf_counter()
             pc = densify.dense_reconstruction(scene, DenseOptions(), save_dmaps_to=tmp,
                                               device=device, _eager=eager)
@@ -1380,6 +1517,7 @@ def _run_densify(scene, device="cuda", env=None, eager=False):
             wall = time.perf_counter() - t0
             launches = dict(pm_kernel.LAUNCHES)
             launches.update({k: v - filter0[k] for k, v in filter_kernel.LAUNCHES.items()})
+            launches["fuse_views"] = sum(v - fuse0[k] for k, v in fusion_kernel.LAUNCHES.items())
             full = _dmaps(tmp, len(scene.images), ("depth", "normal", "conf"))
             extra = {"maps": full,
                      "graphs": _graph_summary(made) if device == "cuda" else None}

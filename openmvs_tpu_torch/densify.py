@@ -11,9 +11,10 @@ neighbour pairs, fused per view (``estimate_depth_map_sgm``), with the
 pairs' disparities cached as ``.dimap`` files beside the depth maps.
 
 Estimation runs on ``device`` (the card by default); the cross-view
-filter runs where the maps were estimated (on a card by the kernels of
-``ops/filter_kernel.py``, else host numpy, as in the JAX package), fusion
-on the host. A scene with a mesh and no point
+filter and fusion run where the maps were estimated (on a card by the
+kernels of ``ops/filter_kernel.py`` and ``ops/fusion_kernel.py``, else host
+numpy, as in the JAX package; fusion streamed from ``.dmap`` files and the
+``merge`` mode stay on the host). A scene with a mesh and no point
 cloud seeds from the mesh's visible samples (``sample_mesh_with_visibility``);
 ``export_mesh_to_depth_maps`` renders the mesh into every view. At
 verbosity above 2 (``utils/log.verbosity``) each saved depth map also gets
@@ -33,7 +34,8 @@ around the call, the stages ``timed`` logs, and in the PatchMatch path
 ``pm.init``, ``pm.block`` and ``pm.sweep``, then ``pm.finalize``),
 ``pm.download``, ``filter.project`` and ``filter.decide`` per view (and on
 a card ``filter.upload`` and the counter ``filter.card_splats``), and
-fusion's ``fuse.*`` steps; ``graphs`` adds ``graphs.capture`` and the
+fusion's ``fuse.*`` steps (on a card also ``fuse.upload``, ``fuse.download``
+and the counter ``fuse.card_views``); ``graphs`` adds ``graphs.capture`` and the
 counter ``pm.sweeps``; ``LevelStore`` the counters ``pm.levels_built``,
 ``pm.levels_reused`` and ``pm.card_neighbour_maps``.
 
@@ -65,7 +67,8 @@ from openmvs_tpu_torch.geometry.camera import Camera
 from openmvs_tpu_torch.io import dimap as dimapio
 from openmvs_tpu_torch.io import dmap as dmapio
 from openmvs_tpu_torch.io import images as imio
-from openmvs_tpu_torch.ops import filter_kernel, filters, fusion, graphs, patchmatch, seed, sgm
+from openmvs_tpu_torch.ops import (filter_kernel, filters, fusion, fusion_kernel, graphs,
+                                  patchmatch, seed, sgm)
 from openmvs_tpu_torch.scene import PointCloud, Scene
 from openmvs_tpu_torch.utils import device as devmod
 from openmvs_tpu_torch.utils import rng, safety
@@ -779,6 +782,16 @@ def _filter_views(results: Dict[int, DepthMapResult], resumed: set,
     return filtered
 
 
+def _fusion_card(results: Dict[int, DepthMapResult]) -> Optional[torch.device]:
+    """The card every map was estimated on, where one card estimated them
+    all (fusion then runs there); None otherwise."""
+    devs = {r.device for r in results.values()}
+    if len(devs) != 1:
+        return None
+    dev = devs.pop()
+    return dev if dev is not None and torch.device(dev).type == "cuda" else None
+
+
 def _run_views_parallel(fn, view_indices, devices) -> dict:
     """fn(view_idx, device) for each view (SceneDensify.cpp:1883-1903's
     per-image event pipeline). Progress lines count the views done.
@@ -1072,10 +1085,15 @@ def dense_reconstruction(
                             image_idx=r.image_idx, image_id=rid, camera=r.camera,
                             depth=r.depth, normal=r.normal, conf=r.conf, color=color,
                             neighbor_ids=r.neighbor_ids))
-                fuse_fn = (fusion.merge_depth_maps if opts.fuse_mode == "merge"
-                           else fusion.fuse_depth_maps)
-                pc = fuse_fn(vdd, opts, estimate_color=opts.estimate_colors > 0,
-                             estimate_normal=opts.estimate_normals > 0)
+                est = dict(estimate_color=opts.estimate_colors > 0,
+                           estimate_normal=opts.estimate_normals > 0)
+                card = _fusion_card(results)
+                if opts.fuse_mode == "merge":
+                    pc = fusion.merge_depth_maps(vdd, opts, **est)
+                elif card is not None:
+                    pc = fusion_kernel.fuse_views(vdd, opts, device=card, **est)
+                else:
+                    pc = fusion.fuse_depth_maps(vdd, opts, **est)
         if save_dmaps_to and opts.remove_dmaps:
             for rid in results:
                 p = os.path.join(save_dmaps_to, f"depth{rid:04d}.dmap")

@@ -140,6 +140,39 @@ SIGNATURES = {
         "filter_clear_launch": [P, L, P],  # words, n, stream
         "filter_max_neighbours": [],
     },
+    "fuse_views": {
+        "fuse_claim_launch": [
+            P, P, P, P,         # maps (host array of 5), cams, meta, sel
+            I, I,               # n_nb, hw
+            P, L,               # claims, stride
+            D, D, I,            # thr, cos_err, modes
+            P,                  # stream
+        ],
+        "fuse_count_launch": [
+            P, P, P, P, I, I,   # maps, cams, meta, sel, n_nb, hw
+            P, L,               # claims, stride
+            I, I,               # n_min, modes
+            P, P,               # flags, block_sums
+            P,                  # stream
+        ],
+        "fuse_keep_launch": [
+            P, P, P, P, I, I,   # maps, cams, meta, sel, n_nb, hw
+            P, L, I,            # claims, stride, modes
+            P, P, P, P,         # flags, block_sums, totals, block_base
+            P, P,               # pidx, moff
+            P,                  # stream
+        ],
+        "fuse_emit_launch": [
+            P, P, P, P, I, I,   # maps, cams, meta, sel, n_nb, hw
+            P, L,               # claims, stride
+            F, I,               # floor, modes
+            P, P, P,            # flags, pidx, moff
+            P,                  # out (host array of 6)
+            P,                  # stream
+        ],
+        "fuse_clear_launch": [P, L, P],  # claims, n, stream
+        "fuse_max_neighbours": [],
+    },
     "rectify_warp": {
         "rectify_warp_launch": [
             P, I, I,            # src_a (ha, wa), ha, wa
@@ -253,6 +286,7 @@ def _load(name: str) -> ctypes.CDLL:
               "pm_score_v2": ("pm_v2_max_texels", V2_MAX_TEXELS),
               "sgm_scan": ("sgm_scan_reg_d", SGM_REG_D),
               "filter_splat": ("filter_max_neighbours", MAX_VIEWS),
+              "fuse_views": ("fuse_max_neighbours", MAX_VIEWS),
               "wzncc_volume": ("wzncc_volume_max_texels", WZNCC_MAX_TEXELS)}
     if name in limits:
         fn, want = limits[name]
